@@ -5,7 +5,8 @@
 
 Builds the port's kernels from this checkout (K1 with nvcc into
 build/xumx_slicq_torch/, K2 with Triton), holds each against its plain
-PyTorch version at the shapes of the main path, checks the canonical
+PyTorch version at the shapes of the main path (K2 as one grouped call
+over all 70 buckets of the packed layout), checks the canonical
 bark-262 transform round trip on the card, runs the full-width offline
 Separator on the card and on the CPU and compares the stems, demixes a
 seeded 236 s stereo track (the MUSDB18-HQ test-set average length) with
@@ -72,10 +73,38 @@ def bound(nbytes: float, flops: float):
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
+def k2_inputs(layout, g):
+    """Packed K2 inputs on the card: a silent first slice in every bucket
+    (exact zeros) and a scale that differs from bucket to bucket, so that
+    each bucket has a stability scale m_k > 1 of its own."""
+    from xumx_slicq_torch.ops.packed import PackedBlocks
+
+    x = torch.randn(layout.size, generator=g, device=g.device, dtype=torch.complex64)
+    v = torch.rand(4 * layout.size, generator=g, device=g.device)
+    for k, (xb, vb) in enumerate(zip(PackedBlocks(x, layout), PackedBlocks(v, layout, 4))):
+        xb.mul_(10.0 * (1 + k % 7))
+        xb[:, :, :, 0] = 0
+        vb.mul_(1 + k % 5)
+    return x, v
+
+
+def bucket_errors(out, ref, layout):
+    """(max abs err, max over buckets of max |out - ref| / max |ref|) of
+    packed estimates."""
+    from xumx_slicq_torch.ops.packed import PackedBlocks
+
+    err, rel = 0.0, 0.0
+    for a, b in zip(PackedBlocks(out, layout, 4), PackedBlocks(ref, layout, 4)):
+        e = float((a - b).abs().max())
+        err, rel = max(err, e), max(rel, e / float(b.abs().max()))
+    return err, rel
+
+
 def breakdown(sep, slicqt, track, batch: int, chunk: int):
-    """Where one track's time goes: device time of each stage on the
-    track's chunk batch (CUDA events), then one profiled demix for the
-    device's busy share and its heaviest kernels."""
+    """Where one track's time goes: the time of each stage on the track's
+    chunk batch between CUDA events (device time, plus any gap where the
+    host launches slower than the device runs), then one profiled demix
+    for the device's busy share and its heaviest kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     from xumx_slicq_torch.ops import wiener as wiener_ops
@@ -90,17 +119,17 @@ def breakdown(sep, slicqt, track, batch: int, chunk: int):
     model, folded = sep.model, sep._folded
     with torch.inference_mode():
         X = slicqt.forward(a)
-        mags = [blk(torch.abs(x), f) * torch.abs(x)[None] for blk, f, x in zip(model.blocks, folded, X)]
+        mags, _ = model.magnitudes(X, folded)                     # packed, as the model hands them to K2
         Y, _ = model.apply(X, folded)
         Yb = [y.reshape((-1,) + y.shape[2:]) for y in Y]
         stages = {
             "slicqt_forward": cuda_ms(lambda: slicqt.forward(a), reps=3),
+            "cdae": cuda_ms(lambda: model.magnitudes(X, folded), reps=3),
             "cdae_and_wiener": cuda_ms(lambda: model.apply(X, folded), reps=3),
             "wiener_k2": cuda_ms(lambda: wiener_ops.wiener_blocks(X, mags), reps=3),
             "slicqt_backward": cuda_ms(lambda: slicqt.backward(Yb, chunk), reps=3),
         }
         del X, mags, Y, Yb
-    stages["cdae"] = stages["cdae_and_wiener"] - stages["wiener_k2"]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
         sep(track)
@@ -111,11 +140,13 @@ def breakdown(sep, slicqt, track, batch: int, chunk: int):
     rows = [e for e in prof.key_averages()
             if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0]
     busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    k2_rows = [e for e in rows if "_em_pass" in e.key]
     top = sorted(rows, key=lambda e: -e.self_device_time_total)[:10]
     phase("track_breakdown", stage_device_ms=stages, profiled_wall_ms=wall * 1e3,
           device_busy_ms=busy_ms if rows else "not measured",
           device_busy_share=busy_ms / (wall * 1e3) if rows else "not measured",
           kernel_launches=sum(e.count for e in rows),
+          k2_kernels=[[e.key[:60], e.count, e.self_device_time_total / 1e3] for e in k2_rows],
           top_kernels=[[e.key[:60], e.count, e.self_device_time_total / 1e3] for e in top])
 
 
@@ -131,7 +162,9 @@ def main():
           f"xumx_slicq_torch imported from {xumx_slicq_torch.__file__}, not from {ROOT}")
     from xumx_slicq_torch.kernels import build
     from xumx_slicq_torch.kernels.synth_assembly import synth_assembly, synth_assembly_plain
-    from xumx_slicq_torch.kernels.wiener_em import stability_scale, wiener_em, wiener_em_plain
+    from xumx_slicq_torch.kernels import triton_wiener_em
+    from xumx_slicq_torch.kernels.wiener_em import (_device_state, stability_scale, wiener_em, wiener_em_grouped,
+                                                    wiener_em_grouped_plain, wiener_em_plain)
     from xumx_slicq_torch.models import Unmix
     from xumx_slicq_torch.ops.slicqt import SliCQT
     from xumx_slicq_torch.separator import Separator
@@ -204,45 +237,38 @@ def main():
         plain_ms=k1_plain_ms, bound_ms=k1_bound, bound_by=k1_by, library_ms=None)
     del flat
 
-    # -- phase 4: K2 against its plain version on all 70 buckets --------------
-    xs_b, vs_b = [], []
-    for b in slicqt.buckets:
-        T = S * b.M
-        x = torch.randn((batch, 2, b.f_count, T), generator=g, device=dev, dtype=torch.complex64)
-        x[..., :b.M] = 0                                       # silent first slice: exact zeros
-        xs_b.append(x)
-        vs_b.append(torch.rand((4, batch, 2, b.f_count, T), generator=g, device=dev))
-    err, rel = 0.0, 0.0
-    for x, v in zip(xs_b, vs_b):
-        k = wiener_em(x, v)
-        p = wiener_em_plain(x, v, stability_scale(x))
-        e = float((k - p).abs().max())
-        err, rel = max(err, e), max(rel, e / float(p.abs().max()))
+    # -- phase 4: K2, one grouped call over all 70 buckets ---------------------
+    layout = slicqt.layout(batch, 2, S)
+    xk, vk = k2_inputs(layout, g)
+    before = wiener_em.launches
+    yk = wiener_em_grouped(xk, vk, layout)
     torch.cuda.synchronize()
-
-    def k2_all():
-        for x, v in zip(xs_b, vs_b):
-            wiener_em(x, v)
-
-    def k2_plain_all():
-        for x, v in zip(xs_b, vs_b):
-            wiener_em_plain(x, v, stability_scale(x))
-
-    k2_ms = cuda_ms(k2_all, reps=10)
-    k2_plain_ms = cuda_ms(k2_plain_all, reps=3, warm=1)
-    positions = sum(x.numel() for x in xs_b) // 2             # (b, f, t) positions
+    k2_call_launches = wiener_em.launches - before
+    err, rel = bucket_errors(yk, wiener_em_grouped_plain(xk, vk, layout), layout)
+    del yk
+    k2_ms = cuda_ms(lambda: wiener_em_grouped(xk, vk, layout), reps=20)
+    k2_plain_ms = cuda_ms(lambda: wiener_em_grouped_plain(xk, vk, layout), reps=3, warm=1)
+    state = _device_state(layout, xk.device)                   # K2's tables, built by the call above
+    yk = torch.empty(4 * layout.size, dtype=torch.complex64, device=dev)
+    pass1_ms = cuda_ms(lambda: (state["maxima"].zero_(), triton_wiener_em.pass1(xk, vk, state)), reps=20)
+    pass2_ms = cuda_ms(lambda: triton_wiener_em.pass2(xk, vk, state, yk), reps=20)
+    positions = layout.size // 2                               # (b, f, t) positions
     # per position: read x (2 x 8 B) and v (8 x 4 B), write y (8 x 8 B);
-    # ~400 fp32 operations per position, counted from the plain version
+    # ~400 fp32 operations per position, counted from the plain version.
+    # The two passes read x and v twice: 160 B per position
     k2_bound, k2_by = bound(positions * 112, positions * 400)
-    phase("k2_wiener_em", buckets=len(xs_b), batch=batch, positions=positions,
-          max_abs_err=err, rel_err=rel, tol=K2_TOL, ms=k2_ms, plain_ms=k2_plain_ms,
-          bound_ms=k2_bound, bound_by=k2_by, gbytes=positions * 112 / 1e9)
+    k2_floor = positions * 160 / HBM_BYTES_PER_S * 1e3
+    phase("k2_wiener_em", buckets=len(layout.shapes), batch=batch, positions=positions,
+          launches_per_call=k2_call_launches, max_abs_err=err, rel_err=rel, tol=K2_TOL, ms=k2_ms,
+          pass1_ms=pass1_ms, pass2_ms=pass2_ms, plain_ms=k2_plain_ms, bound_ms=k2_bound, bound_by=k2_by,
+          two_pass_floor_ms=k2_floor, share_of_bound=k2_bound / k2_ms, gbytes=positions * 112 / 1e9)
     check(rel <= K2_TOL, f"K2 disagrees with its plain version: rel err {rel} > {K2_TOL}")
+    check(k2_call_launches <= 3, f"K2 made {k2_call_launches} device launches in one call, expected <= 3")
     kernels["wiener_em"] = dict(
         name="wiener_em", route="triton", source="xumx_slicq_torch/kernels/triton_wiener_em.py",
         replaces="xumx_slicq_tpu/ops/wiener.py:107", max_abs_err=err, ms=k2_ms,
         plain_ms=k2_plain_ms, bound_ms=k2_bound, bound_by=k2_by, library_ms=None)
-    del xs_b, vs_b
+    del xk, vk, yk
 
     # -- phase 5: transform round trip on the card ----------------------------
     rng = np.random.default_rng(0)
@@ -297,10 +323,11 @@ def main():
         times.append(time.time() - t0)
     phase("track_236s", samples=N_track, chunks=nchunks, chunk_batch=batch, s_per_track=times,
           s_per_track_median=float(np.median(times)), max_memory_allocated_bytes=peak,
-          launches=launches)
+          launches=launches, k2_device_launches_per_chunk_batch=launches["wiener_em"])
     for name, n in launches.items():
         check(n > 0, f"kernel {name} was not launched on the main path")
         kernels[name]["launches"] = n
+    check(launches["wiener_em"] <= 3, f"K2 made {launches['wiener_em']} device launches for one chunk batch")
     breakdown(sep, slicqt, track, batch, chunk)
 
     # -- phase 8: realtime Separator ------------------------------------------

@@ -14,6 +14,7 @@ from torch import nn
 
 from ..device import resolve_device
 from ..ops import wiener as wiener_ops
+from ..ops.packed import PackedBlocks, layout_of
 from .cdae import SlicedCDAE
 
 
@@ -60,16 +61,30 @@ class Unmix(nn.Module):
         apply(folded=...)."""
         return [blk.fold_batchnorm() for blk in self.blocks]
 
+    def magnitudes(self, Xcomplex: Sequence[torch.Tensor], folded: Optional[List[dict]] = None):
+        """The masks and the target magnitude estimates masks * |X|.
+
+        Returns (Ymags, Ymasks): Ymags is a `PackedBlocks` of
+        (4, B, C, F, S, T) views of one float32 buffer, in the layout of
+        Xcomplex when that is packed; Ymasks a list of per-bucket masks."""
+        layout = layout_of(Xcomplex)
+        Xmags = [torch.abs(x) for x in Xcomplex]
+        Ymasks = [blk(xm, None if folded is None else folded[i])
+                  for i, (blk, xm) in enumerate(zip(self.blocks, Xmags))]
+        if torch.is_grad_enabled() and any(m.requires_grad for m in Ymasks):
+            # out= writes do not support autograd: concatenate instead
+            packed = torch.cat([(m * xm[None]).reshape(-1) for m, xm in zip(Ymasks, Xmags)])
+            return PackedBlocks(packed, layout, 4), Ymasks
+        Ymags = PackedBlocks(torch.empty(4 * layout.size, dtype=torch.float32, device=Xmags[0].device), layout, 4)
+        for m, xm, dst in zip(Ymasks, Xmags, Ymags):
+            torch.mul(m, xm[None], out=dst)           # multiplicative skip connection
+        return Ymags, Ymasks
+
     def forward(self, Xcomplex: Sequence[torch.Tensor], folded: Optional[List[dict]] = None):
         """Xcomplex: list of (B, C, F, S, T) complex mixture blocks.
         Returns (Ycomplex, Ymasks): lists of (4, B, C, F, S, T) complex
         estimates and float masks, as the JAX package's Unmix.apply."""
-        Ymags, Ymasks = [], []
-        for i, (blk, Xb) in enumerate(zip(self.blocks, Xcomplex)):
-            Xmag = torch.abs(Xb)
-            masks = blk(Xmag, None if folded is None else folded[i])
-            Ymags.append(masks * Xmag[None])        # multiplicative skip connection
-            Ymasks.append(masks)
+        Ymags, Ymasks = self.magnitudes(Xcomplex, folded)
         if self.realtime:
             Ycomplex = wiener_ops.phasemix_blocks(Xcomplex, Ymags)
         else:

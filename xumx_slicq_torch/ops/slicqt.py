@@ -15,10 +15,12 @@ held as device tensors. The compute differs where the TPU forced a shape:
 Analysis: temporal slicing -> rfft over nn -> per bucket a gather from the
 half spectrum (positions past nh read the Hermitian mirror, as
 `_build_forward_half` does with nh in place of Lh) -> the parity-indexed
-fused weight -> ifft over M. Synthesis: fft over M -> arrange ramp, written
-into the flat raw buffer -> K1 (weights, mirror conjugation, un-rotation)
--> irfft -> overlap-add. Transform math stays in full fp32 (cuFFT has no
-TF32 path; nothing here enables TF32 matmuls).
+fused weight -> ifft over M, copied into the bucket's view of one packed
+buffer (ops/packed.BucketLayout) that Wiener-EM reads whole.
+Synthesis: fft over M -> arrange ramp, written into the flat raw buffer ->
+K1 (weights, mirror conjugation, un-rotation) -> irfft -> overlap-add.
+Transform math stays in full fp32 (cuFFT has no TF32 path; nothing here
+enables TF32 matmuls).
 
 `backward` writes into a preallocated buffer (`out=`), so it serves
 inference; gradients through synthesis come with K1's backward kernel in
@@ -35,6 +37,7 @@ from ..device import resolve_device
 from ..kernels.synth_assembly import SynthTable, synth_assembly
 from .filterbank import FilterbankPlan, design_filterbank, hannwin
 from .fscale import make_scale
+from .packed import BucketLayout, PackedBlocks
 
 
 def _make_slice_window(sl_len: int, tr_area: int) -> np.ndarray:
@@ -70,7 +73,8 @@ class _BucketPlan:
 class SliCQT:
     """Sliced NSGT over a fixed filterbank plan, on one device.
 
-    forward: (B, C, L) float32 -> list of (B, C, F_b, S, M_b) complex64.
+    forward: (B, C, L) float32 -> list of (B, C, F_b, S, M_b) complex64,
+    views of one packed buffer (`PackedBlocks`).
     backward: that list -> (B, C, length). Coefficients are the JAX
     package's block for block (same plan, same slice-parity rotation)."""
 
@@ -278,16 +282,25 @@ class SliCQT:
         raw = torch.cat([Y[:, :, :-1], Y[:, :, 1:]], dim=-1)
         return raw * self._window
 
-    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
-        """Analysis: (B, C, L) float32 -> list of (B, C, F_b, S, M_b) complex64."""
+    def layout(self, batch: int, channels: int, n_slices: int) -> BucketLayout:
+        """The packed layout of the blocks for (B, C, S)."""
+        return BucketLayout([(batch, channels, b.f_count, n_slices, b.M) for b in self.buckets])
+
+    def forward(self, x: torch.Tensor) -> PackedBlocks:
+        """Analysis: (B, C, L) float32 -> list of (B, C, F_b, S, M_b) complex64.
+
+        The blocks are contiguous views of one packed buffer (the list's
+        `packed`, at the offsets of its `layout`), which Wiener-EM reads as
+        one tensor."""
         X = torch.fft.rfft(self._slice_temporal(x), dim=-1)            # (B,C,S,nh)
-        parity = self._parity(X.shape[2])
-        out = []
-        for src, sgn, fwd_w in self._fwd:
+        B, C, S, _ = X.shape
+        parity = self._parity(S)
+        layout = self.layout(B, C, S)
+        out = PackedBlocks(torch.empty(layout.size, dtype=torch.complex64, device=self.device), layout)
+        for (src, sgn, fwd_w), dst in zip(self._fwd, out):
             t = X[..., src]                                             # (B,C,S,F,M)
             t = torch.complex(t.real, t.imag * sgn)                     # Hermitian mirror
-            c = torch.fft.ifft(t * fwd_w[parity], dim=-1)
-            out.append(c.movedim(3, 2).contiguous())                    # (B,C,F,S,M)
+            dst.copy_(torch.fft.ifft(t * fwd_w[parity], dim=-1).movedim(3, 2))   # (B,C,F,S,M)
         return out
 
     # -- synthesis -------------------------------------------------------------

@@ -8,7 +8,8 @@ and the scale undone.
 
 `wiener_blocks` sends the stereo, one-iteration case -- the offline model's
 path -- to kernel K2 (kernels/wiener_em.py), which works in the native
-block layout; every other case runs the norbert-layout functions below.
+block layout over all buckets of a packed layout at once; every other case
+runs the norbert-layout functions below.
 
 Shape conventions of the norbert-layout functions:
     v: (B, frames, bins, ch, srcs) float  -- source magnitude estimates
@@ -20,7 +21,8 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
-from ..kernels.wiener_em import EPS, stability_scale, wiener_em
+from ..kernels.wiener_em import EPS, stability_scale, wiener_em_grouped
+from .packed import PackedBlocks, pack
 
 
 def _abs2(x: torch.Tensor) -> torch.Tensor:
@@ -161,16 +163,16 @@ def blockwise_phasemix_sep(mix_block: torch.Tensor, mag_est: torch.Tensor) -> to
 
 def wiener_blocks(mix_blocks: Sequence[torch.Tensor], mag_blocks: Sequence[torch.Tensor], iterations: int = 1) -> List[torch.Tensor]:
     """Wiener-EM across the bucket list (phase.py:7-15). Stereo with one
-    iteration -- the model path -- runs K2 per bucket; the rest runs
-    blockwise_wiener."""
+    iteration -- the model path -- runs K2 as one grouped call over every
+    bucket, on the blocks' own buffers when they are packed (as
+    SliCQT.forward and Unmix make them), else on one copy of each list;
+    it returns `PackedBlocks`. The rest runs blockwise_wiener."""
     if iterations != 1 or mix_blocks[0].shape[1] != 2:
         return [blockwise_wiener(x, v, iterations) for x, v in zip(mix_blocks, mag_blocks)]
-    out = []
-    for x, v in zip(mix_blocks, mag_blocks):
-        T, B, C, F, S, M = v.shape
-        y = wiener_em(x.reshape(B, C, F, S * M).contiguous(), v.reshape(T, B, C, F, S * M).contiguous())
-        out.append(y.reshape(T, B, C, F, S, M))
-    return out
+    x, v = pack(mix_blocks), pack(mag_blocks, 4)
+    if x.layout != v.layout:
+        raise ValueError("wiener_blocks: mixture and magnitude blocks differ in shape")
+    return PackedBlocks(wiener_em_grouped(x.packed, v.packed, x.layout), x.layout, 4)
 
 
 def phasemix_blocks(mix_blocks: Sequence[torch.Tensor], mag_blocks: Sequence[torch.Tensor]) -> List[torch.Tensor]:
