@@ -5,16 +5,19 @@
 Every test needs an NVIDIA GPU with sm_90 (the kernels build for sm_90a)
 and skips without one; the check runs inside a fixture, so every test
 worker collects the same tests. Tolerances are relative to the largest
-plain value (of each bucket, for K2): 1e-5 for K1 (the same sums; only FMA
-contraction differs) and 1e-4 for K2 (fp32 division and square-root
-rounding through the 2x2 inverse).
+plain value (of each bucket, for K2): 1e-5 for K1 and its backward (the
+same sums; only FMA contraction differs), and 1e-4 for K2 and its backward
+(fp32 division and square-root rounding through the 2x2 inverse, and row
+sums taken in another order).
 """
 
 import pytest
 import torch
 
-from xumx_slicq_torch.kernels.synth_assembly import synth_assembly, synth_assembly_plain
-from xumx_slicq_torch.kernels.wiener_em import (stability_scale, wiener_em, wiener_em_grouped,
+from xumx_slicq_torch.kernels.synth_assembly import (synth_assembly, synth_assembly_backward,
+                                                     synth_assembly_backward_plain, synth_assembly_plain)
+from xumx_slicq_torch.kernels.wiener_em import (stability_scale, wiener_em, wiener_em_backward,
+                                                wiener_em_backward_plain, wiener_em_grouped,
                                                 wiener_em_grouped_plain, wiener_em_plain)
 from xumx_slicq_torch.ops import wiener as wiener_ops
 from xumx_slicq_torch.ops.packed import PackedBlocks
@@ -24,6 +27,7 @@ pytestmark = pytest.mark.cuda
 
 MEL12 = dict(scale="mel", fbins=12, fmin=200.0)
 K2_LAUNCHES = 3                                    # device launches per K2 call, any number of buckets
+TRAIN_LEN = 2 * 44100                             # the training layout: batch 32 of 2.0 s
 
 
 @pytest.fixture
@@ -145,3 +149,88 @@ def test_transform_round_trip_on_card(cuda):
     with torch.inference_mode():
         err = float((t.backward(t.forward(x), x.shape[-1]) - x).abs().max())
     assert err <= 1e-5
+
+
+@pytest.mark.parametrize("cfg,rows,length", [(MEL12, 16, 2 * 44100), ({}, 4 * 32 * 2, TRAIN_LEN)],
+                         ids=["mel-12", "bark-262-training"])
+def test_k1_backward_matches_plain(cuda, cfg, rows, length):
+    t = SliCQT(device=cuda, **cfg)
+    g = torch.Generator(device=cuda).manual_seed(6)
+    gout = torch.randn((rows, t.n_slices(length), t.nh), generator=g, device=cuda, dtype=torch.complex64)
+    before = synth_assembly_backward.launches
+    out = synth_assembly_backward(gout, t.synth_table)
+    torch.cuda.synchronize()
+    assert synth_assembly_backward.launches == before + 1
+    assert _rel(out, synth_assembly_backward_plain(gout, t.synth_table)) < 1e-5
+    # through the autograd Function: forward K1, backward K1's kernel
+    flat = torch.randn((rows, gout.shape[1], t.raw_len), generator=g, device=cuda,
+                       dtype=torch.complex64).requires_grad_(True)
+    (gf,) = torch.autograd.grad(synth_assembly(flat, t.synth_table), flat, gout)
+    assert synth_assembly_backward.launches == before + 2 and torch.equal(gf, out)
+
+
+def _k2_grad(x, v, gy, layout):
+    vr = v.clone().requires_grad_(True)
+    (gv,) = torch.autograd.grad(wiener_em_grouped(x, vr, layout), vr, gy)
+    return gv
+
+
+def _bucket_rels(a, b, layout):
+    return [_rel(p, q) for p, q in zip(PackedBlocks(a, layout, 4), PackedBlocks(b, layout, 4))]
+
+
+@pytest.mark.parametrize("cfg,batch,length", [(MEL12, 2, 44100), ({}, 32, TRAIN_LEN)],
+                         ids=["mel-12", "bark-262-training"])
+def test_k2_backward_matches_plain(cuda, cfg, batch, length):
+    """K2's backward kernels through the autograd Function, over every
+    bucket, against the plain closed form, bucket by bucket."""
+    t = SliCQT(device=cuda, **cfg)
+    layout = t.layout(batch, 2, t.n_slices(length))
+    x, v = _packed_inputs(layout, cuda, seed=7)
+    gy = torch.randn(4 * layout.size, generator=torch.Generator(device=cuda).manual_seed(8), device=cuda,
+                     dtype=torch.complex64)
+    before = wiener_em_backward.launches
+    gv = _k2_grad(x, v, gy, layout)
+    torch.cuda.synchronize()
+    assert wiener_em_backward.launches - before == 2
+    assert torch.isfinite(gv).all()
+    assert max(_bucket_rels(gv, wiener_em_backward_plain(x, v, gy, layout), layout)) < 1e-4
+
+
+def test_k2_backward_scale_is_per_bucket(cuda):
+    """One bucket's x and v scaled by 1e3: every other bucket's gradient
+    stays as it was, and that bucket's matches the plain closed form."""
+    t = SliCQT(device=cuda, **MEL12)
+    layout = t.layout(2, 2, t.n_slices(44100))
+    x, v = _packed_inputs(layout, cuda, seed=9)
+    gy = torch.randn(4 * layout.size, generator=torch.Generator(device=cuda).manual_seed(10), device=cuda,
+                     dtype=torch.complex64)
+    base = _k2_grad(x, v, gy, layout)
+    k = len(layout.shapes) // 2
+    xs, vs = PackedBlocks(x.clone(), layout), PackedBlocks(v.clone(), layout, 4)
+    xs[k].mul_(1e3)
+    vs[k].mul_(1e3)
+    out = _k2_grad(xs.packed, vs.packed, gy, layout)
+    rels = _bucket_rels(out, base, layout)
+    assert max(r for i, r in enumerate(rels) if i != k) < 1e-6
+    assert _bucket_rels(out, wiener_em_backward_plain(xs.packed, vs.packed, gy, layout), layout)[k] < 1e-4
+
+
+def test_k2_two_forwards_then_one_backward(cuda):
+    """Each forward keeps its own partial sums and max slots: a second
+    forward on other inputs before the first one's backward leaves the
+    first gradient exactly as a lone forward gives it."""
+    t = SliCQT(device=cuda, **MEL12)
+    layout = t.layout(2, 2, t.n_slices(44100))
+    x, v = _packed_inputs(layout, cuda, seed=11)
+    x2, v2 = _packed_inputs(layout, cuda, seed=12)
+    gy = torch.randn(4 * layout.size, generator=torch.Generator(device=cuda).manual_seed(13), device=cuda,
+                     dtype=torch.complex64)
+    alone = _k2_grad(x, v, gy, layout)
+    vr, vr2 = v.clone().requires_grad_(True), (v2 * 7.0).requires_grad_(True)
+    y = wiener_em_grouped(x, vr, layout)
+    y2 = wiener_em_grouped(x2 * 3.0, vr2, layout)                # overwrites nothing of y's state
+    (g1,) = torch.autograd.grad(y, vr, gy)
+    torch.cuda.synchronize()
+    assert torch.equal(g1, alone)
+    assert torch.isfinite(torch.autograd.grad(y2, vr2, gy)[0]).all()

@@ -107,19 +107,21 @@ for m in pkgutil.walk_packages(xumx_slicq_torch.__path__, "xumx_slicq_torch."):
 import chip_smoke
 bad = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", "flax", "xumx_slicq_tpu"))
 print(json.dumps({"skipped": skipped, "bad": bad,
-                  "n": len([k for k in sys.modules if k.startswith("xumx_slicq_torch")])}))
+                  "ported": sorted(k for k in sys.modules if k.startswith("xumx_slicq_torch"))}))
 """
 
 
 def test_port_never_imports_jax():
-    """Every port module and chip_smoke.py import without jax, flax or the
-    JAX package; only the Triton module needs triton (absent here)."""
+    """Every port module (the trainer's among them) and chip_smoke.py
+    import without jax, flax or the JAX package; only the Triton module
+    needs triton (absent here)."""
     res = subprocess.run([sys.executable, "-c", _ISOLATION, str(ROOT)], capture_output=True, text=True,
                          timeout=120, cwd=ROOT)
     assert res.returncode == 0, res.stderr
     out = json.loads(res.stdout.strip().splitlines()[-1])
     assert out["bad"] == []
-    assert out["n"] >= 15
+    assert len(out["ported"]) >= 18
+    assert {f"xumx_slicq_torch.{m}" for m in ("data", "loss", "training")} <= set(out["ported"])
     try:
         import triton  # noqa: F401
         assert out["skipped"] == []

@@ -8,8 +8,10 @@ xumx_slicq_tpu/ so that each counterpart is easy to find; the JAX package is
 the reference the port is tested against and is never imported from here.
 
 Two stages run as kernels written by hand for Hopper (xumx_slicq_torch/
-kernels/): the synthesis gather-assembly (K1, CUDA C++) and the stereo
-Wiener-EM (K2, Triton). Every other stage is plain PyTorch (cuFFT, cuDNN).
+kernels/), each with a backward kernel for training: the synthesis
+gather-assembly (K1, CUDA C++) and the stereo Wiener-EM (K2, Triton).
+Every other stage is plain PyTorch (cuFFT, cuDNN). `separator` and
+`inference` demix; `training`, `loss` and `data` train the CDAE model.
 
 Entry points take an explicit `device` ("cuda" by default) and raise when no
 card is present unless the caller asked for "cpu".

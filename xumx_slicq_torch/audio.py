@@ -1,8 +1,9 @@
 """Wav I/O and input normalisation for the port (scipy only).
 
-A copy of `load_audio`, `save_audio` and `preprocess_audio` from
-xumx_slicq_tpu/data.py:152-221 with the PCM helpers they call; the port
-imports nothing of the JAX package.
+A copy of `load_info`, `load_audio`, `save_audio` and `preprocess_audio`
+from xumx_slicq_tpu/data.py:51-221 with the PCM helpers they call (the
+training datasets in data.py read through them too); the port imports
+nothing of the JAX package.
 """
 
 from math import gcd
@@ -32,15 +33,30 @@ def _to_float32(data: np.ndarray) -> np.ndarray:
     raise ValueError(f"unsupported wav dtype {data.dtype}")
 
 
-def _crop_to_float32(seg: np.ndarray) -> np.ndarray:
-    """(samples, C) wav slice of any supported dtype -> owned (C, samples)
-    float32 scaled by its PCM full-scale, in one pass."""
+def _crop_to_float32(seg: np.ndarray, gain: float = 1.0, out: Optional[np.ndarray] = None) -> np.ndarray:
+    """(samples, C) wav slice of any supported dtype -> (C, samples)
+    float32 scaled by its PCM full-scale times `gain`, in one pass, into
+    `out` or a new owned array."""
     scale = _PCM_SCALE.get(seg.dtype.name)
     if scale is None and seg.dtype not in (np.float32, np.float64):
-        return np.array(_to_float32(np.asarray(seg)).T, np.float32, order="C")  # uint8 / raises
-    out = np.empty((seg.shape[1], seg.shape[0]), np.float32)
-    np.multiply(seg.T, np.float32(scale if scale is not None else 1.0), out=out)
+        res = _to_float32(np.asarray(seg)).T                  # uint8 / raises
+        if gain != 1.0:
+            res = res * np.float32(gain)
+        if out is None:
+            return np.array(res, np.float32, order="C")
+        out[...] = res
+        return out
+    if out is None:
+        out = np.empty((seg.shape[1], seg.shape[0]), np.float32)
+    np.multiply(seg.T, np.float32(gain * (scale if scale is not None else 1.0)), out=out)
     return out
+
+
+def load_info(path: str) -> dict:
+    """Audio metadata: samplerate, samples, channels, duration."""
+    sr, data = wavfile.read(str(path), mmap=True)
+    channels = 1 if data.ndim == 1 else data.shape[1]
+    return {"samplerate": sr, "samples": data.shape[0], "channels": channels, "duration": data.shape[0] / sr}
 
 
 def load_audio(path: str, start: float = 0.0, dur: Optional[float] = None):

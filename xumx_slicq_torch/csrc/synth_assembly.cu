@@ -64,3 +64,65 @@ extern "C" int synth_assembly(const void* spec, int64_t raw_len, const void* idx
         (const float*)w_im, (const float2*)unrot, (float2*)out, rows, n_slices, nh, O);
     return (int)cudaGetLastError();
 }
+
+// K1's backward: the cotangent of the flat raw spectra.
+//
+// Replaces XLA's autodiff of the assembly in the JAX package's train step
+// (xumx_slicq_tpu/training.py:261-264, 274). With h = g * conj(unrot[s % 2, p]),
+//
+//   gV[n, s, k] = sum over the entries (p, j) with idx[p, j] = k of
+//                 w_re[p, j] * Re h[p] + i * w_im[p, j] * Im h[p]
+//
+// gathered through the transposed table (tidx/tw_re/tw_im, (raw_len, W),
+// sentinel tidx == nh after a value's real entries), built once on the
+// host: a raw value is read by at most one positive piece and two mirror
+// pieces (mu clamps at M-1), so W <= 3. Values whose targets all lie at
+// p >= nh have only sentinels and get zero. No atomics: every output is
+// written by exactly one thread, so the result is deterministic.
+//
+// Bound: bytes. The function reads g (8 B per half-spectrum value), writes
+// gV (8 B per raw value) and reads the table once; one thread per
+// (row, k) with consecutive threads on consecutive k, so the table and the
+// output are coalesced and a warp's reads of g and of the phase fall on a
+// few neighbouring positions of one row, which stay in L1/L2.
+
+__global__ void synth_assembly_backward_kernel(const float2* __restrict__ g, int32_t nh,
+                                               const int32_t* __restrict__ tidx,
+                                               const float* __restrict__ tw_re,
+                                               const float* __restrict__ tw_im,
+                                               const float2* __restrict__ unrot,
+                                               float2* __restrict__ out,
+                                               int64_t rows, int32_t n_slices, int64_t raw_len,
+                                               int32_t W) {
+    int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+    if (t >= rows * raw_len) return;
+    int64_t row = t / raw_len;                 // row = n * n_slices + s
+    int64_t k = t - row * raw_len;
+    int32_t parity = (int32_t)(row % n_slices) & 1;
+    const float2* src = g + row * nh;
+    const float2* ph = unrot + (int64_t)parity * nh;
+    float re = 0.f, im = 0.f;
+    for (int32_t j = 0; j < W; ++j) {
+        int64_t e = k * W + j;
+        int32_t p = __ldg(tidx + e);
+        if (p >= nh) break;                    // real entries first, then sentinels
+        float2 gv = src[p];
+        float2 u = __ldg(ph + p);
+        re += __ldg(tw_re + e) * (gv.x * u.x + gv.y * u.y);   // Re(g conj(u))
+        im += __ldg(tw_im + e) * (gv.y * u.x - gv.x * u.y);   // Im(g conj(u))
+    }
+    out[t] = make_float2(re, im);
+}
+
+extern "C" int synth_assembly_backward(const void* g, int32_t nh, const void* tidx,
+                                       const void* tw_re, const void* tw_im, const void* unrot,
+                                       void* out, int64_t rows, int32_t n_slices, int64_t raw_len,
+                                       int32_t W, void* stream) {
+    int64_t total = rows * raw_len;
+    const int threads = 256;
+    int64_t blocks = (total + threads - 1) / threads;
+    synth_assembly_backward_kernel<<<(unsigned int)blocks, threads, 0, (cudaStream_t)stream>>>(
+        (const float2*)g, nh, (const int32_t*)tidx, (const float*)tw_re, (const float*)tw_im,
+        (const float2*)unrot, (float2*)out, rows, n_slices, raw_len, W);
+    return (int)cudaGetLastError();
+}

@@ -29,6 +29,23 @@ compiles once for every layout. Complex values are loaded and stored as
 element; offsets are int64 (the packed estimates at chunk batch 8 hold
 ~700 M floats). Traffic: pass 1 reads x and v (48 B per position), pass 2
 reads them again and writes y (112 B): 160 B against the 112 B bound.
+
+The backward (replacing XLA's autodiff of the same chain in the train
+step) walks the same two tables, with the forward call's own partial sums
+and max slots:
+* backward pass 1, per (bucket, row, split): recompute R from the
+  forward's partials, then per frame Cxx, its inverse, U = Cxx^-1 x / m,
+  Z = m sum_s v_s R_s G_s and E_s = m G_s - Cxx^-1 Z (G the cotangent of
+  y), and sum v_s U E_s^H over frames: 16 floats per item, laid out like
+  the forward's partials;
+* backward pass 2, per (bucket, row, block): sum the row's cotangents of
+  R, map them through R = c / w to the cotangent of c, and write dL/dv
+  per frame from the direct vv path, the path through Cxx^-1 and the path
+  through c00, c11 and c01.
+Bound: bytes. The function reads x, v and the cotangent (112 B per
+position) and writes dL/dv (32 B): 144 B. Both passes read the three
+inputs, so the two-pass floor is 256 B per position. 8 warps per program
+keep each thread at one frame of the (4, BLOCK) source tiles.
 """
 
 import torch
@@ -64,6 +81,22 @@ def _work_item(it_ptr, bk_ptr, pid):
     first = tl.load(bk + 5)
     b = row // F
     return k, row, b * 2 * F + (row - b * F), c, x_off, F, T, n, splits, first
+
+
+@triton.jit
+def _row_sums(p, splits):
+    # a row's 16 partial sums over its pass-1 items: four (4,) vectors
+    s4 = tl.arange(0, 4)
+    a = tl.zeros((4,), tl.float32)
+    b = tl.zeros((4,), tl.float32)
+    c = tl.zeros((4,), tl.float32)
+    d = tl.zeros((4,), tl.float32)
+    for j in range(splits.to(tl.int32)):
+        a += tl.load(p + j * 16 + s4)
+        b += tl.load(p + j * 16 + 4 + s4)
+        c += tl.load(p + j * 16 + 8 + s4)
+        d += tl.load(p + j * 16 + 12 + s4)
+    return a, b, c, d
 
 
 @triton.jit
@@ -124,16 +157,7 @@ def _em_pass2(x_ptr, v_ptr, bk_ptr, it_ptr, part_ptr, max_ptr, y_ptr, eps, sqeps
     m = tl.maximum(tl.sqrt(tl.load(max_ptr + k)) * 0.1, 1.0)     # max|x|^2 of the bucket
     inv_m2 = 1.0 / (m * m)
     s4 = tl.arange(0, 4)
-    c00 = tl.zeros((4,), tl.float32)
-    c11 = tl.zeros((4,), tl.float32)
-    c01r = tl.zeros((4,), tl.float32)
-    c01i = tl.zeros((4,), tl.float32)
-    p = part_ptr + (first + row * splits) * 16 + s4
-    for j in range(splits.to(tl.int32)):
-        c00 += tl.load(p + j * 16)
-        c11 += tl.load(p + j * 16 + 4)
-        c01r += tl.load(p + j * 16 + 8)
-        c01i += tl.load(p + j * 16 + 12)
+    c00, c11, c01r, c01i = _row_sums(part_ptr + (first + row * splits) * 16, splits)
     c00 = c00 * inv_m2
     c11 = c11 * inv_m2
     w = 0.5 * (c00 + c11) + eps
@@ -184,17 +208,178 @@ def _em_pass2(x_ptr, v_ptr, bk_ptr, it_ptr, part_ptr, max_ptr, y_ptr, eps, sqeps
     tl.store(y0 + F * T * 2 + offs, tl.join(o1r, o1i), mask=m3)
 
 
-def pass1(x: torch.Tensor, v: torch.Tensor, state: dict):
+@triton.jit
+def _row_filter(part_ptr, max_ptr, k, first, row, splits, eps):
+    # m_k, 1/m_k^2, w and R (each (4,) over sources) of one row, as pass 2 forms them
+    m = tl.maximum(tl.sqrt(tl.load(max_ptr + k)) * 0.1, 1.0)
+    inv_m2 = 1.0 / (m * m)
+    c00, c11, c01r, c01i = _row_sums(part_ptr + (first + row * splits) * 16, splits)
+    c00 = c00 * inv_m2
+    c11 = c11 * inv_m2
+    w = 0.5 * (c00 + c11) + eps
+    return m, inv_m2, w, c00 / w, c11 / w, c01r * inv_m2 / w, c01i * inv_m2 / w
+
+
+@triton.jit
+def _frame_grad(x_ptr, v_ptr, g_ptr, x_off, pos, F, T, n, t, mask, m, inv_m2,
+                R00, R11, R01r, R01i, sqeps):
+    # per frame of one row: v, vv, x, U = Cxx^-1 x / m and E_s = m G_s - Cxx^-1 Z,
+    # Z = m sum_s vv_s R_s G_s; R* are (4, 1), frame vectors come back as (1, BLOCK)
+    x0 = x_ptr + (x_off + pos) * 2
+    x0r, x0i = _load_x(x0, t, mask)
+    x1r, x1i = _load_x(x0 + F * T * 2, t, mask)
+    v0 = v_ptr + 4 * x_off + pos
+    src = tl.arange(0, 4).to(tl.int64)[:, None] * n
+    va = tl.load(v0 + src + t[None, :], mask=mask[None, :], other=0.0)              # (4, BLOCK)
+    vb = tl.load(v0 + F * T + src + t[None, :], mask=mask[None, :], other=0.0)
+    vv = 0.5 * (va * va + vb * vb) * inv_m2
+    A00 = tl.sum(vv * R00, axis=0) + sqeps
+    A11 = tl.sum(vv * R11, axis=0) + sqeps
+    A01r = tl.sum(vv * R01r, axis=0)
+    A01i = tl.sum(vv * R01i, axis=0)
+    det = A00 * A11 - (A01r * A01r + A01i * A01i)
+    i00 = A11 / det
+    i11 = A00 / det
+    i01r = -A01r / det
+    i01i = -A01i / det
+    xs0r = x0r / m
+    xs0i = x0i / m
+    xs1r = x1r / m
+    xs1i = x1i / m
+    U0r = i00 * xs0r + (i01r * xs1r - i01i * xs1i)
+    U0i = i00 * xs0i + (i01r * xs1i + i01i * xs1r)
+    U1r = (i01r * xs0r + i01i * xs0i) + i11 * xs1r
+    U1i = (i01r * xs0i - i01i * xs0r) + i11 * xs1i
+    g0 = g_ptr + (4 * x_off + pos) * 2
+    offs = (src * 2 + 2 * t[None, :])[:, :, None] + tl.arange(0, 2)[None, None, :]  # (4, BLOCK, 2)
+    m3 = mask[None, :, None]
+    G0r, G0i = tl.split(tl.load(g0 + offs, mask=m3, other=0.0))
+    G1r, G1i = tl.split(tl.load(g0 + F * T * 2 + offs, mask=m3, other=0.0))
+    # Z = m sum_s vv_s R_s G_s, with R_s = [[R00, R01], [conj(R01), R11]]
+    Z0r = tl.sum(vv * (R00 * G0r + (R01r * G1r - R01i * G1i)), axis=0) * m
+    Z0i = tl.sum(vv * (R00 * G0i + (R01r * G1i + R01i * G1r)), axis=0) * m
+    Z1r = tl.sum(vv * ((R01r * G0r + R01i * G0i) + R11 * G1r), axis=0) * m
+    Z1i = tl.sum(vv * ((R01r * G0i - R01i * G0r) + R11 * G1i), axis=0) * m
+    # W = Cxx^-1 Z, E_s = m G_s - W
+    W0r = i00 * Z0r + (i01r * Z1r - i01i * Z1i)
+    W0i = i00 * Z0i + (i01r * Z1i + i01i * Z1r)
+    W1r = (i01r * Z0r + i01i * Z0i) + i11 * Z1r
+    W1i = (i01r * Z0i - i01i * Z0r) + i11 * Z1i
+    E0r = m * G0r - W0r[None, :]
+    E0i = m * G0i - W0i[None, :]
+    E1r = m * G1r - W1r[None, :]
+    E1i = m * G1i - W1i[None, :]
+    return (va, vb, vv, U0r[None, :], U0i[None, :], U1r[None, :], U1i[None, :],
+            E0r, E0i, E1r, E1i, x0r, x0i, x1r, x1i)
+
+
+@triton.jit
+def _em_bwd_pass1(x_ptr, v_ptr, g_ptr, bk_ptr, it_ptr, part_ptr, max_ptr, gpart_ptr, eps, sqeps,
+                  CHUNK: tl.constexpr, BLOCK: tl.constexpr):
+    # per (bucket, row, split): the frame sums of dL/dR_s = v_s U E_s^H
+    pid = tl.program_id(0)
+    k, row, bcf, split, x_off, F, T, n, splits, first = _work_item(it_ptr, bk_ptr, pid)
+    m, inv_m2, w, R00, R11, R01r, R01i = _row_filter(part_ptr, max_ptr, k, first, row, splits, eps)
+    R00 = R00[:, None]
+    R11 = R11[:, None]
+    R01r = R01r[:, None]
+    R01i = R01i[:, None]
+    pos = bcf * T
+    acc00 = tl.zeros((4, BLOCK), tl.float32)
+    acc11 = tl.zeros((4, BLOCK), tl.float32)
+    acc01r = tl.zeros((4, BLOCK), tl.float32)
+    acc01i = tl.zeros((4, BLOCK), tl.float32)
+    t0 = split * CHUNK
+    frames = tl.minimum(T - t0, CHUNK).to(tl.int32)
+    for i in range(0, frames, BLOCK):
+        t = t0 + i + tl.arange(0, BLOCK)
+        mask = t < T
+        (va, vb, vv, U0r, U0i, U1r, U1i, E0r, E0i, E1r, E1i,
+         x0r, x0i, x1r, x1i) = _frame_grad(x_ptr, v_ptr, g_ptr, x_off, pos, F, T, n, t, mask, m, inv_m2,
+                                           R00, R11, R01r, R01i, sqeps)
+        acc00 += vv * (U0r * E0r + U0i * E0i)                      # Re(U0 conj(E0))
+        acc11 += vv * (U1r * E1r + U1i * E1i)
+        acc01r += vv * (U1r * E0r + U1i * E0i + U0r * E1r + U0i * E1i)   # conj(U1) E0 + U0 conj(E1)
+        acc01i += vv * (U1r * E0i - U1i * E0r + U0i * E1r - U0r * E1i)
+    out = gpart_ptr + pid.to(tl.int64) * 16 + tl.arange(0, 4)
+    tl.store(out, tl.sum(acc00, axis=1))
+    tl.store(out + 4, tl.sum(acc11, axis=1))
+    tl.store(out + 8, tl.sum(acc01r, axis=1))
+    tl.store(out + 12, tl.sum(acc01i, axis=1))
+
+
+@triton.jit
+def _em_bwd_pass2(x_ptr, v_ptr, g_ptr, bk_ptr, it_ptr, part_ptr, max_ptr, gpart_ptr, gv_ptr, eps, sqeps,
+                  BLOCK: tl.constexpr):
+    # per (bucket, row, block): dL/dR -> dL/dc through R = c / w, then dL/dv per frame
+    pid = tl.program_id(0)
+    k, row, bcf, blk, x_off, F, T, n, splits, first = _work_item(it_ptr, bk_ptr, pid)
+    m, inv_m2, w, R00, R11, R01r, R01i = _row_filter(part_ptr, max_ptr, k, first, row, splits, eps)
+    gR00, gR11, gR01r, gR01i = _row_sums(gpart_ptr + (first + row * splits) * 16, splits)
+    gw = -(gR00 * R00 + gR11 * R11 + gR01r * R01r + gR01i * R01i) / w
+    gc00 = (gR00 / w + 0.5 * gw)[:, None]
+    gc11 = (gR11 / w + 0.5 * gw)[:, None]
+    gc01r = (gR01r / w)[:, None]
+    gc01i = (gR01i / w)[:, None]
+    R00 = R00[:, None]
+    R11 = R11[:, None]
+    R01r = R01r[:, None]
+    R01i = R01i[:, None]
+    t = blk * BLOCK + tl.arange(0, BLOCK)
+    mask = t < T
+    pos = bcf * T
+    (va, vb, vv, U0r, U0i, U1r, U1i, E0r, E0i, E1r, E1i,
+     x0r, x0i, x1r, x1i) = _frame_grad(x_ptr, v_ptr, g_ptr, x_off, pos, F, T, n, t, mask, m, inv_m2,
+                                       R00, R11, R01r, R01i, sqeps)
+    # dL/dvv_s = Re(E_s^H R_s U)
+    F0r = R00 * U0r + (R01r * U1r - R01i * U1i)
+    F0i = R00 * U0i + (R01r * U1i + R01i * U1r)
+    F1r = (R01r * U0r + R01i * U0i) + R11 * U1r
+    F1i = (R01r * U0i - R01i * U0r) + R11 * U1i
+    gvv = E0r * F0r + E0i * F0i + E1r * F1r + E1i * F1i
+    u0r, u0i = _unit_phase(x0r, x0i)
+    u1r, u1i = _unit_phase(x1r, x1i)
+    phr = (u0r * u1r + u0i * u1i)[None, :]                         # u0 conj(u1)
+    phi = (u0i * u1r - u0r * u1i)[None, :]
+    q = gc01r * phr + gc01i * phi                                   # Re(conj(dL/dc01) u0 conj(u1))
+    gva = (gvv * va + 2.0 * gc00 * va + q * vb) * inv_m2
+    gvb = (gvv * vb + 2.0 * gc11 * vb + q * va) * inv_m2
+    src = tl.arange(0, 4).to(tl.int64)[:, None] * n
+    g0 = gv_ptr + 4 * x_off + pos + src + t[None, :]
+    tl.store(g0, gva, mask=mask[None, :])
+    tl.store(g0 + F * T, gvb, mask=mask[None, :])
+
+
+def pass1(x: torch.Tensor, v: torch.Tensor, tables: dict, partials: torch.Tensor, maxima: torch.Tensor):
     """Launch pass 1 on checked packed inputs (wiener_em_grouped validates
     them) into zeroed max slots."""
-    items = state["items1"]
-    _em_pass1[(items.shape[0],)](torch.view_as_real(x), v, state["buckets"], items, state["partials"],
-                                 state["maxima"], CHUNK=CHUNK, BLOCK=BLOCK, num_warps=4)
+    items = tables["items1"]
+    _em_pass1[(items.shape[0],)](torch.view_as_real(x), v, tables["buckets"], items, partials,
+                                 maxima, CHUNK=CHUNK, BLOCK=BLOCK, num_warps=4)
 
 
-def pass2(x: torch.Tensor, v: torch.Tensor, state: dict, y: torch.Tensor):
+def pass2(x: torch.Tensor, v: torch.Tensor, tables: dict, partials: torch.Tensor, maxima: torch.Tensor,
+          y: torch.Tensor):
     """Launch pass 2, writing the packed estimates y."""
-    items = state["items2"]
-    _em_pass2[(items.shape[0],)](torch.view_as_real(x), v, state["buckets"], items, state["partials"],
-                                 state["maxima"], torch.view_as_real(y), EPS, EPS ** 0.5,
+    items = tables["items2"]
+    _em_pass2[(items.shape[0],)](torch.view_as_real(x), v, tables["buckets"], items, partials,
+                                 maxima, torch.view_as_real(y), EPS, EPS ** 0.5,
                                  BLOCK=BLOCK, num_warps=4)
+
+
+def backward_pass1(x: torch.Tensor, v: torch.Tensor, gy: torch.Tensor, tables: dict, partials: torch.Tensor,
+                   maxima: torch.Tensor, gpart: torch.Tensor):
+    """Launch backward pass 1: the frame sums of dL/dR into gpart, laid
+    out like the forward's partials."""
+    items = tables["items1"]
+    _em_bwd_pass1[(items.shape[0],)](torch.view_as_real(x), v, torch.view_as_real(gy), tables["buckets"], items,
+                                     partials, maxima, gpart, EPS, EPS ** 0.5, CHUNK=CHUNK, BLOCK=BLOCK,
+                                     num_warps=8)
+
+
+def backward_pass2(x: torch.Tensor, v: torch.Tensor, gy: torch.Tensor, tables: dict, partials: torch.Tensor,
+                   maxima: torch.Tensor, gpart: torch.Tensor, gv: torch.Tensor):
+    """Launch backward pass 2, writing dL/dv into gv."""
+    items = tables["items2"]
+    _em_bwd_pass2[(items.shape[0],)](torch.view_as_real(x), v, torch.view_as_real(gy), tables["buckets"], items,
+                                     partials, maxima, gpart, gv, EPS, EPS ** 0.5, BLOCK=BLOCK, num_warps=8)

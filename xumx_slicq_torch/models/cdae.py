@@ -22,7 +22,7 @@ import torch
 import torch.nn.functional as Fn
 from torch import nn
 
-from .nn import batch_norm, kaiming_uniform_
+from .nn import amp_op, batch_norm, kaiming_uniform_
 
 NB_TARGETS = 4
 
@@ -41,7 +41,7 @@ class SlicedCDAE(nn.Module):
 
     def __init__(self, nb_channels: int, nb_f_bins: int, nb_t_bins: int,
                  hidden_size_1: int = 50, hidden_size_2: int = 51, time_filter_2: int = 4,
-                 realtime: bool = False):
+                 realtime: bool = False, amp: bool = False):
         super().__init__()
         C, T = nb_channels, nb_t_bins
         h1, h2, tf2 = hidden_size_1, hidden_size_2, time_filter_2
@@ -50,6 +50,7 @@ class SlicedCDAE(nn.Module):
         self.hidden_size_1, self.hidden_size_2, self.time_filter_2 = h1, h2, tf2
         self.fphi = fphi
         self.realtime = realtime
+        self.amp = amp                 # bf16 conv operands (mixed-precision training)
         n = NB_TARGETS
         self.enc1_w = nn.Parameter(torch.empty(n * h1, C, fphi, T))      # conv OIHW
         self.enc2_w = nn.Parameter(torch.empty(n * h2, h1, fphi, tf2))   # grouped conv
@@ -105,8 +106,12 @@ class SlicedCDAE(nn.Module):
     def forward(self, x_mag: torch.Tensor, folded: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
         """x_mag: (B, C, F, S, T) mixture magnitude -> masks (4, B, C, F, S, T).
 
-        folded=None runs BatchNorm in eval mode from the running
-        statistics; a dict from fold_batchnorm runs the folded fast path."""
+        folded=None runs BatchNorm as the module's mode says: in train mode
+        on the batch statistics, updating the running buffers; in eval mode
+        from the running statistics. A dict from fold_batchnorm runs the
+        folded fast path, which is eval-only (cdae.py:253-255)."""
+        if folded is not None and self.training:
+            raise ValueError("BN-folded weights cannot train (fold_batchnorm is eval-only)")
         B, C, F, S, T = x_mag.shape
         hop = T // 2
         p = folded if folded is not None else {
@@ -118,18 +123,25 @@ class SlicedCDAE(nn.Module):
         def norm(h, bn):
             if folded is not None:
                 return h
-            return batch_norm(h, bn.weight, bn.bias, bn.running_mean, bn.running_var, bn.eps)
+            return batch_norm(h, bn.weight, bn.bias, bn.running_mean, bn.running_var, bn.eps,
+                              train=self.training)
+
+        def conv(fn, h, w, b, **kw):
+            if not self.amp:
+                return fn(h, w, b, **kw)
+            y = amp_op(lambda a, c: fn(a, c, **kw), h, w, amp=True)      # the bias stays fp32
+            return y if b is None else y + b[None, :, None, None]
 
         x = (x_mag + p["input_mean"][None, None, :, None, None]) * p["input_scale"][None, None, :, None, None]
         x = x.reshape(B, C, F, S * T)
         if self.realtime:
             x = Fn.pad(x, (T - 1, 0))
-        h = Fn.conv2d(x, p["enc1_w"], p.get("enc1_b"), stride=(1, hop))
+        h = conv(Fn.conv2d, x, p["enc1_w"], p.get("enc1_b"), stride=(1, hop))
         h = torch.relu(norm(h, self.bn1))
-        h = Fn.conv2d(h, p["enc2_w"], p.get("enc2_b"), groups=NB_TARGETS)
+        h = conv(Fn.conv2d, h, p["enc2_w"], p.get("enc2_b"), groups=NB_TARGETS)
         h = torch.relu(norm(h, self.bn2))
-        h = Fn.conv_transpose2d(h, p["dec1_w"], p.get("dec1_b"), groups=NB_TARGETS)
+        h = conv(Fn.conv_transpose2d, h, p["dec1_w"], p.get("dec1_b"), groups=NB_TARGETS)
         h = torch.relu(norm(h, self.bn3))
-        y = Fn.conv_transpose2d(h, p["dec2_w"], p["dec2_b"], stride=(1, hop), groups=NB_TARGETS)
+        y = conv(Fn.conv_transpose2d, h, p["dec2_w"], p["dec2_b"], stride=(1, hop), groups=NB_TARGETS)
         mask = torch.sigmoid(y[..., : S * T])
         return mask.reshape(B, NB_TARGETS, C, F, S, T).transpose(0, 1)

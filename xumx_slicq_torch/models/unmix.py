@@ -3,8 +3,11 @@
 Port of xumx_slicq_tpu/models/unmix.py (CDAE variant): one SlicedCDAE per
 bucket, the sigmoid masks multiplied into the mixture magnitude, then the
 embedded Wiener-EM (offline) or mix-phase (realtime) reconstruction
-(model.py:263-269). Eval only in this slice: BatchNorm runs from its
-running statistics, or folded into the convs.
+(model.py:263-269). The model is built in eval mode, where BatchNorm runs
+from its running statistics or folded into the convs; the trainer calls
+`.train()`, where BatchNorm runs on batch statistics and updates its
+running buffers (unmix.py:121-165), and gradients flow through K2's
+backward kernel to the masks.
 """
 
 from typing import List, Optional, Sequence, Tuple
@@ -34,15 +37,19 @@ class Unmix(nn.Module):
         hidden_size_1: int = 50,
         hidden_size_2: int = 51,
         time_filter_2: int = 4,
+        amp: bool = False,
         seed: int = 0,
         device="cuda",
     ):
+        """amp: bf16 conv operands with float32 results (`nn.amp_op`), the
+        JAX package's mixed-precision training (unmix.py:44-48)."""
         super().__init__()
         dev = resolve_device(device)
         self.realtime = realtime
+        self.amp = amp
         self.wiener_iterations = wiener_iterations
         self.blocks = nn.ModuleList([
-            SlicedCDAE(C, F, T, hidden_size_1, hidden_size_2, time_filter_2, realtime=realtime)
+            SlicedCDAE(C, F, T, hidden_size_1, hidden_size_2, time_filter_2, realtime=realtime, amp=amp)
             for (_, C, F, _, T) in block_shapes
         ])
         gen = torch.Generator().manual_seed(seed)

@@ -22,9 +22,11 @@ K1 (weights, mirror conjugation, un-rotation) -> irfft -> overlap-add.
 Transform math stays in full fp32 (cuFFT has no TF32 path; nothing here
 enables TF32 matmuls).
 
-`backward` writes into a preallocated buffer (`out=`), so it serves
-inference; gradients through synthesis come with K1's backward kernel in
-the training slice.
+Under `no_grad`/`inference_mode`, synthesis writes each bucket's ramped
+spectrum into its window of a preallocated flat buffer (`out=`). With
+autograd on and a block that needs a gradient (the train step's SD-SDR
+term), it builds the same flat buffer with one `torch.cat`, and K1's
+backward kernel carries the gradient back through the assembly.
 """
 
 from dataclasses import dataclass
@@ -232,6 +234,23 @@ class SliCQT:
         self._synth_np["idx"][pos, col] = raw
         self._synth_np["w_re"][pos, col] = wr
         self._synth_np["w_im"][pos, col] = wi
+        # the transposed table for K1's backward: per raw value, the
+        # positions that read it (one positive piece, at most two mirror
+        # pieces as mu clamps at M - 1), sentinel nh after them
+        order = np.argsort(raw, kind="stable")
+        traw, tpos, twr, twi = raw[order], pos[order], wr[order], wi[order]
+        tcounts = np.bincount(traw, minlength=off)
+        W = int(tcounts.max())
+        assert W <= 3, f"a raw synthesis value is read {W} times, expected at most 3"
+        tcol = np.arange(traw.size) - np.repeat(np.cumsum(tcounts) - tcounts, tcounts)
+        self._synth_np.update(
+            tidx=np.full((off, W), nh, np.int32),
+            tw_re=np.zeros((off, W), np.float32),
+            tw_im=np.zeros((off, W), np.float32),
+        )
+        self._synth_np["tidx"][traw, tcol] = tpos
+        self._synth_np["tw_re"][traw, tcol] = twr
+        self._synth_np["tw_im"][traw, tcol] = twi
 
     def _to_device(self):
         dev = self.device
@@ -242,11 +261,9 @@ class SliCQT:
         ]
         self._inv_ramp = [torch.from_numpy(b.inv_ramp).to(dev) for b in self.buckets]
         self.synth_table = SynthTable(
-            idx=torch.from_numpy(self._synth_np["idx"]).to(dev),
-            w_re=torch.from_numpy(self._synth_np["w_re"]).to(dev),
-            w_im=torch.from_numpy(self._synth_np["w_im"]).to(dev),
             unrot=torch.from_numpy(self._unrot).to(dev),
             raw_len=self.raw_len,
+            **{k: torch.from_numpy(a).to(dev) for k, a in self._synth_np.items()},
         )
 
     # -- shape helpers ---------------------------------------------------------
@@ -318,10 +335,16 @@ class SliCQT:
         B, C, _, S, _ = blocks[0].shape
         N = B * C
         parity = self._parity(S)
+        specs = (torch.fft.fft(cb.to(torch.complex64), dim=-1).reshape(N, b.f_count, S, b.M)
+                 for b, cb in zip(self.buckets, blocks))
+        if torch.is_grad_enabled() and any(cb.requires_grad for cb in blocks):
+            # out= writes do not differentiate: concatenate the (S, F*M) pieces
+            flat = torch.cat([(spec * ramp[parity]).transpose(1, 2).reshape(N, S, -1)
+                              for spec, ramp in zip(specs, self._inv_ramp)], dim=-1)
+            return synth_assembly(flat, self.synth_table)
         flat = torch.empty((N, S, self.raw_len), dtype=torch.complex64, device=self.device)
-        for b, off, ramp, cb in zip(self.buckets, self.raw_starts, self._inv_ramp, blocks):
+        for b, off, ramp, spec in zip(self.buckets, self.raw_starts, self._inv_ramp, specs):
             F, M = b.f_count, b.M
-            spec = torch.fft.fft(cb.to(torch.complex64), dim=-1).reshape(N, F, S, M)
             # the ramp multiply writes straight into this bucket's (S, F, M)
             # window of the flat buffer: no per-bucket copy, no concat
             dst = flat[:, :, off: off + F * M].unflatten(-1, (F, M)).transpose(1, 2)

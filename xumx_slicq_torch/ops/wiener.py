@@ -8,8 +8,9 @@ and the scale undone.
 
 `wiener_blocks` sends the stereo, one-iteration case -- the offline model's
 path -- to kernel K2 (kernels/wiener_em.py), which works in the native
-block layout over all buckets of a packed layout at once; every other case
-runs the norbert-layout functions below.
+block layout over all buckets of a packed layout at once and carries the
+gradient to the magnitudes through its backward kernel; every other case
+runs the norbert-layout functions below (autograd of plain PyTorch).
 
 Shape conventions of the norbert-layout functions:
     v: (B, frames, bins, ch, srcs) float  -- source magnitude estimates
