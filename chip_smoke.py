@@ -11,7 +11,11 @@ bark-262 transform round trip on the card, runs the full-width offline
 Separator on the card and on the CPU and compares the stems, demixes a
 seeded 236 s stereo track (the MUSDB18-HQ test-set average length) with
 launch counts and timings, and runs the realtime Separator once. Then the
-training path: K1's and K2's backward kernels against their plain versions
+LSTM variant: K5 (CUDA C++, the LSTM recurrence) against its plain version
+over all 70 buckets offline and realtime, at 2 s and at the main path's
+layout, timed there beside cuDNN's LSTM, the canonical LSTM Separator on the card
+against the CPU, the 236 s track through it, and its realtime model once.
+Then the training path: K1's and K2's backward kernels against their plain versions
 at the training shapes, one train step on the card against the CPU at
 mel-12, 13 full-width train steps (batch 32 of 2.0 s) with launch counts,
 memory and a profile, and the trainer's CLI with a resume and a reload.
@@ -49,6 +53,19 @@ TRAIN_LOSS_TOL = 1e-4           # train step, card against CPU at mel-12: loss, 
 TRAIN_GRAD_TOL = 1e-3           # ... gradients, ||cuda - cpu|| / ||cpu|| per tensor (cuFFT, cuDNN sum orders)
 BF16_LOSS_TOL = 1e-2            # ... the same step with bf16 conv operands (--bf16): ~3 decimal digits
 TRAIN_BATCH, TRAIN_SECONDS = 32, 2.0    # the JAX trainer's defaults (training.py:349-372)
+# K5 against its plain version, max |h_kernel - h_plain| with |h| < 1: accurate expf/tanhf against
+# torch's sigmoid/tanh and gate sums in another order, carried through up to 3,212 steps (2 s layout,
+# plain version on the CPU) or 85,264 steps (the main path's layout, plain version on the card) of a
+# contractive recurrence
+K5_TOL = 1e-4
+LSTM_STEM_TOL = 1e-4            # |cuda - cpu| LSTM stems, fp32 both sides, 0.1-RMS input
+LSTM_PARAMS = {False: 976174, True: 1213294}    # the JAX package's counts at bark-262 (offline, realtime)
+# One K5 step's dependent latency in cycles, reckoned from csrc/lstm_recurrence.cu for the one-lane
+# (H = 1) group: the gate sum (FMA and add, 8), a gate's activation (the halving multiply, libm's
+# tanhf ~10 dependent operations ~45, the FMA of the sigmoid, ~55 in all; the four gates side by
+# side), the cell update (multiply and FMA, 8), tanhf(c) (~45) and the output product (4): ~120
+STEP_CHAIN_CYCLES = 120
+CUDNN_MAX_STEPS = 65535         # cuDNN's LSTM refuses longer sequences (CUDNN_STATUS_NOT_SUPPORTED on an H100)
 
 
 def fail(msg: str):
@@ -112,11 +129,12 @@ def bucket_errors(out, ref, layout):
     return err, rel
 
 
-def breakdown(sep, slicqt, track, batch: int, chunk: int):
+def breakdown(sep, slicqt, track, batch: int, chunk: int, name: str = "track_breakdown", model: str = "cdae"):
     """Where one track's time goes: the time of each stage on the track's
     chunk batch between CUDA events (device time, plus any gap where the
     host launches slower than the device runs), then one profiled demix
-    for the device's busy share and its heaviest kernels."""
+    for the device's busy share and its heaviest kernels. `model` names the
+    mask model's stage (the CDAE's or the LSTM's)."""
     from torch.profiler import ProfilerActivity, profile
 
     from xumx_slicq_torch.ops import wiener as wiener_ops
@@ -128,16 +146,16 @@ def breakdown(sep, slicqt, track, batch: int, chunk: int):
         seg = track[0, :, ci * chunk: (ci + 1) * chunk]
         flat[ci, :, : seg.shape[-1]] = seg
     a = torch.from_numpy(flat).to(dev)
-    model, folded = sep.model, sep._folded
+    mask_model, folded = sep.model, sep._prepared
     with torch.inference_mode():
         X = slicqt.forward(a)
-        mags, _ = model.magnitudes(X, folded)                     # packed, as the model hands them to K2
-        Y, _ = model.apply(X, folded)
+        mags, _ = mask_model.magnitudes(X, folded)                # packed, as the model hands them to K2
+        Y, _ = mask_model.apply(X, folded)
         Yb = [y.reshape((-1,) + y.shape[2:]) for y in Y]
         stages = {
             "slicqt_forward": cuda_ms(lambda: slicqt.forward(a), reps=3),
-            "cdae": cuda_ms(lambda: model.magnitudes(X, folded), reps=3),
-            "cdae_and_wiener": cuda_ms(lambda: model.apply(X, folded), reps=3),
+            model: cuda_ms(lambda: mask_model.magnitudes(X, folded), reps=3),
+            f"{model}_and_wiener": cuda_ms(lambda: mask_model.apply(X, folded), reps=3),
             "wiener_k2": cuda_ms(lambda: wiener_ops.wiener_blocks(X, mags), reps=3),
             "slicqt_backward": cuda_ms(lambda: slicqt.backward(Yb, chunk), reps=3),
         }
@@ -154,7 +172,7 @@ def breakdown(sep, slicqt, track, batch: int, chunk: int):
     busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
     k2_rows = [e for e in rows if "_em_pass" in e.key]
     top = sorted(rows, key=lambda e: -e.self_device_time_total)[:10]
-    phase("track_breakdown", stage_device_ms=stages, profiled_wall_ms=wall * 1e3,
+    phase(name, stage_device_ms=stages, profiled_wall_ms=wall * 1e3,
           device_busy_ms=busy_ms if rows else "not measured",
           device_busy_share=busy_ms / (wall * 1e3) if rows else "not measured",
           kernel_launches=sum(e.count for e in rows),
@@ -258,6 +276,194 @@ def k2_backward(slicqt, g, kernels):
         name="wiener_em_backward", route="triton", source="xumx_slicq_torch/kernels/triton_wiener_em.py",
         replaces="xumx_slicq_tpu/training.py:256", max_abs_err=err, ms=ms, plain_ms=plain_ms,
         bound_ms=bms, bound_by=by, library_ms=None)
+
+
+def k5_inputs(slicqt, batch: int, S: int, realtime: bool, g):
+    """K5's layout for the canonical LSTM model at (batch, S), projections
+    with the spread of a trained model's, and W_hh at torch's init bound."""
+    from xumx_slicq_torch.kernels.lstm_recurrence import RecurrenceLayout, pack_recurrent_weights
+    from xumx_slicq_torch.models.lstm import SlicedLSTM
+
+    shapes = slicqt.layout(batch, 2, S).shapes
+    hidden = [SlicedLSTM(C, F, M, realtime=realtime).lstm_hidden for (_, C, F, _, M) in shapes]
+    layout = RecurrenceLayout(hidden, [S * M for (*_, M) in shapes], batch, 1 if realtime else 2)
+    xp = torch.randn(layout.xp_size, generator=g, device=g.device) * 2
+    w_hh = [(torch.rand((4, layout.dirs, 4 * h, h), generator=g, device=g.device) * 2 - 1) / h ** 0.5
+            for h in hidden]
+    return layout, xp, pack_recurrent_weights(w_hh)
+
+
+def cudnn_lstm_ms(layout, xp, w, max_steps=None) -> float:
+    """The yardstick for K5: cuDNN's LSTM (torch.nn.LSTM) computing the same
+    function, one call per (bucket, target, direction) with W_ih = I and
+    zero biases on K5's own projections, each call's device time summed.
+    One call per direction because the directions' projections differ.
+    Timed here only; the port never calls it. max_steps: leave out the
+    buckets with longer sequences."""
+    total = 0.0
+    with torch.no_grad():
+        for k, (x, wt) in enumerate(zip(layout.xp_blocks(xp), layout.w_blocks(w))):
+            H = layout.hidden[k]
+            if max_steps is not None and layout.frames[k] > max_steps:
+                continue
+            m = torch.nn.LSTM(4 * H, H).to(xp.device)
+            m.weight_ih_l0.copy_(torch.eye(4 * H))
+            m.bias_ih_l0.zero_()
+            m.bias_hh_l0.zero_()
+            for t in range(4):
+                for d in range(layout.dirs):
+                    m.weight_hh_l0.copy_(wt[t, d].T)
+                    seq = x[t, d] if d == 0 else x[t, d].flip(0)          # (frames, B, 4H) in walk order
+                    total += cuda_ms(lambda: m(seq), reps=1, warm=1)
+    return total
+
+
+def k5_lstm_recurrence(slicqt, g, kernels, batch: int, S: int):
+    """K5 against its plain version over all 70 buckets, offline and
+    realtime: on the CPU at the chunk batch of 2 s clips, and on the card
+    at the main path's layout (chunk batch `batch` of the default chunk,
+    the longest chains); there K5 per layer with its byte bound, its serial
+    floor, the plain version's time and cuDNN's beside it."""
+    from xumx_slicq_torch.kernels.lstm_recurrence import lstm_recurrence, lstm_recurrence_grouped_plain
+
+    S2 = slicqt.n_slices(2 * 44100)
+    errs, small = {}, {}
+    for realtime in (False, True):
+        layout, xp, w = k5_inputs(slicqt, batch, S2, realtime, g)
+        before = lstm_recurrence.launches
+        out = lstm_recurrence(xp, w, layout)
+        torch.cuda.synchronize()
+        check(lstm_recurrence.launches == before + 1, "K5 made more than one launch for one layer")
+        name = "realtime" if realtime else "offline"
+        errs[name] = float((out.cpu() - lstm_recurrence_grouped_plain(xp.cpu(), w.cpu(), layout)).abs().max())
+        check(bool(torch.isfinite(out).all()) and errs[name] <= K5_TOL,
+              f"K5 {name} disagrees with its plain version: {errs[name]} > {K5_TOL}")
+        small[name] = dict(max_hidden=max(layout.hidden), max_steps=max(layout.frames),
+                           ms=cuda_ms(lambda: lstm_recurrence(xp, w, layout), reps=5),
+                           cudnn_ms=cudnn_lstm_ms(layout, xp, w))
+    clock_mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                                     capture_output=True, text=True, timeout=60).stdout.split()[0])
+    main = {}
+    for realtime in (False, True):
+        layout, xp, w = k5_inputs(slicqt, batch, S, realtime, g)
+        nbytes = (layout.xp_size + layout.h_size + layout.w_size) * 4
+        # per (sequence, step): 4H x H multiply-adds, the 4H gate adds, ~14 operations a unit for the cell
+        ops = sum(4 * layout.dirs * layout.batch * n * (8 * h * h + 4 * h + 14 * h)
+                  for h, n in zip(layout.hidden, layout.frames))
+        bms, by = bound(nbytes, ops)
+        name = "realtime" if realtime else "offline"
+        out = lstm_recurrence(xp, w, layout)
+        # the plain version on the card, run once: its output is the reference for the longest chains
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        ref = lstm_recurrence_grouped_plain(xp, w, layout)
+        end.record()
+        end.synchronize()
+        err = float((out - ref).abs().max())
+        finite = bool(torch.isfinite(out).all())
+        del out, ref
+        check(finite and err <= K5_TOL, f"K5 {name} disagrees with its plain version at the main path's layout: "
+              f"{err} > {K5_TOL}")
+        main[name] = dict(max_abs_err=err, ms=cuda_ms(lambda: lstm_recurrence(xp, w, layout), reps=5),
+                          plain_ms=start.elapsed_time(end), bound_ms=bms, bound_by=by, gbytes=nbytes / 1e9,
+                          max_steps=max(layout.frames),
+                          serial_floor_ms=max(layout.frames) * STEP_CHAIN_CYCLES / (clock_mhz * 1e3))
+        if not realtime:       # the main path: cuDNN, on the buckets whose length it takes
+            main[name]["cudnn_ms_buckets_it_takes"] = cudnn_lstm_ms(layout, xp, w, CUDNN_MAX_STEPS)
+            main[name]["cudnn_refuses_buckets"] = sum(n > CUDNN_MAX_STEPS for n in layout.frames)
+        del xp, w
+    phase("k5_lstm_recurrence", tol=K5_TOL, max_abs_err_2s=errs, chunk_batch=batch, slices_2s=S2, at_2s=small,
+          slices_main=S, at_main_path=main, step_chain_cycles=STEP_CHAIN_CYCLES, max_sm_clock_mhz=clock_mhz)
+    off = main["offline"]
+    kernels["lstm_recurrence"] = dict(
+        name="lstm_recurrence", route="cuda", source="xumx_slicq_torch/csrc/lstm_recurrence.cu",
+        replaces="xumx_slicq_tpu/models/lstm.py:145", max_abs_err=off["max_abs_err"], ms=off["ms"],
+        plain_ms=off["plain_ms"],
+        bound_ms=off["bound_ms"], bound_by=off["bound_by"],
+        # no library call computes this at the main path's inputs: cuDNN refuses its longest sequences
+        library_ms=None)
+
+
+def lstm_separator_cuda_vs_cpu(slicqt, dev, rng):
+    """The canonical LSTM model (bark-262, weights from seed 0) through the
+    offline Separator on the card and on the CPU, on a 1 s clip."""
+    from xumx_slicq_torch.models import Unmix
+    from xumx_slicq_torch.ops.slicqt import SliCQT
+    from xumx_slicq_torch.separator import Separator
+
+    shapes = slicqt.block_shapes(1, 2, 2 * 44100)
+    sep = Separator(slicqt, Unmix(shapes, lstm=True, seed=0, device=dev), device=dev)
+    n_params = sep.model.num_params()
+    check(n_params == LSTM_PARAMS[False], f"canonical LSTM Unmix has {n_params} parameters, expected {LSTM_PARAMS[False]}")
+    clip = (rng.standard_normal((1, 2, 44100)) * 0.1).astype(np.float32)
+    t0 = time.time()
+    est_gpu = sep(clip)
+    gpu_first_s = time.time() - t0
+    slicqt_cpu = SliCQT(device="cpu")
+    sep_cpu = Separator(slicqt_cpu, Unmix(slicqt_cpu.block_shapes(1, 2, 2 * 44100), lstm=True, seed=0, device="cpu"),
+                        device="cpu")
+    t0 = time.time()
+    est_cpu = sep_cpu(clip)
+    cpu_s = time.time() - t0
+    diff = float(np.abs(est_gpu - est_cpu).max())
+    phase("lstm_separator_cuda_vs_cpu", params=n_params, samples=clip.shape[-1], max_abs_diff=diff,
+          tol=LSTM_STEM_TOL, stem_max=float(np.abs(est_cpu).max()), cuda_first_call_s=gpu_first_s, cpu_s=cpu_s)
+    check(est_gpu.shape == (4, 1, 2, clip.shape[-1]) and np.isfinite(est_gpu).all(), "bad LSTM GPU stems")
+    check(diff <= LSTM_STEM_TOL, f"LSTM GPU stems differ from CPU stems by {diff} > {LSTM_STEM_TOL}")
+    return sep
+
+
+def lstm_track_236s(sep, track, kernels, batch: int):
+    """The 236 s track through the offline LSTM Separator: one chunk batch,
+    so K5 launches once per layer, 3 times; K2 and K1 on the path too."""
+    from xumx_slicq_torch.kernels.lstm_recurrence import lstm_recurrence
+    from xumx_slicq_torch.kernels.synth_assembly import synth_assembly
+    from xumx_slicq_torch.kernels.wiener_em import wiener_em
+
+    counters = {"lstm_recurrence": lstm_recurrence, "wiener_em": wiener_em, "synth_assembly": synth_assembly}
+    sep(track)                                                 # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.time()
+    est = sep(track)                                           # the counted run of the LSTM path
+    torch.cuda.synchronize()
+    times = [time.time() - t0]
+    launches = {k: fn.launches for k, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    check(est.shape == (4, 1, 2, track.shape[-1]) and np.isfinite(est).all(), "bad LSTM stems for the 236 s track")
+    del est
+    for _ in range(2):
+        t0 = time.time()
+        sep(track)
+        torch.cuda.synchronize()
+        times.append(time.time() - t0)
+    phase("lstm_track_236s", samples=track.shape[-1], chunk_batch=batch, s_per_track=times,
+          s_per_track_median=float(np.median(times)), max_memory_allocated_bytes=peak, launches=launches)
+    check(launches["lstm_recurrence"] == 3, f"K5 made {launches['lstm_recurrence']} launches for one chunk batch, "
+          "expected 3 (one a layer)")
+    check(launches["wiener_em"] > 0 and launches["synth_assembly"] > 0, f"LSTM path kernel launches {launches}")
+    kernels["lstm_recurrence"]["launches"] = launches["lstm_recurrence"]
+    breakdown(sep, sep.slicqt, track, batch, sep.chunk_size, name="lstm_track_breakdown", model="lstm")
+
+
+def lstm_realtime(slicqt, dev, clip):
+    """The realtime LSTM model once: parameters, shapes, finite stems, K5 launched."""
+    from xumx_slicq_torch.kernels.lstm_recurrence import lstm_recurrence
+    from xumx_slicq_torch.models import Unmix
+    from xumx_slicq_torch.separator import Separator
+
+    sep = Separator(slicqt, Unmix(slicqt.block_shapes(1, 2, 2 * 44100), realtime=True, lstm=True, seed=0,
+                                  device=dev), device=dev)
+    n_params = sep.model.num_params()
+    before = lstm_recurrence.launches
+    est = sep(clip)
+    n = lstm_recurrence.launches - before
+    phase("lstm_realtime", params=n_params, shape=list(est.shape), finite=bool(np.isfinite(est).all()), k5_launches=n)
+    check(n_params == LSTM_PARAMS[True], f"realtime LSTM Unmix has {n_params} parameters, expected {LSTM_PARAMS[True]}")
+    check(est.shape == (4, 1, 2, clip.shape[-1]) and np.isfinite(est).all(), "bad realtime LSTM stems")
+    check(n > 0, "K5 was not launched by the realtime LSTM model")
 
 
 def _train_batch(seed: int, length: int, batch: int) -> np.ndarray:
@@ -582,9 +788,18 @@ def main():
     est_rt = sep_rt(clip)
     phase("separator_realtime", shape=list(est_rt.shape), finite=bool(np.isfinite(est_rt).all()))
     check(est_rt.shape == (4, 1, 2, clip.shape[-1]) and np.isfinite(est_rt).all(), "bad realtime stems")
-    del sep, sep_rt, track
+    del sep, sep_rt
 
-    # -- phases 9-13: the backward kernels and the training path -------------
+    # -- phases 9-12: the LSTM variant, K5 --------------------------------------
+    k5_lstm_recurrence(slicqt, g, kernels, batch, S)
+    torch.cuda.empty_cache()
+    sep_lstm = lstm_separator_cuda_vs_cpu(slicqt, dev, rng)
+    lstm_track_236s(sep_lstm, track, kernels, batch)
+    del sep_lstm, track
+    lstm_realtime(slicqt, dev, clip)
+    torch.cuda.empty_cache()
+
+    # -- phases 13-17: the backward kernels and the training path ------------
     k1_backward(slicqt, g, kernels)
     k2_backward(slicqt, g, kernels)
     torch.cuda.empty_cache()

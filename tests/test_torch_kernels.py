@@ -1,4 +1,4 @@
-"""K1 and K2 against their plain PyTorch versions on the card.
+"""K1, K2 and K5 against their plain PyTorch versions on the card.
 
     python -m pytest -m cuda --noconftest tests/test_torch_kernels.py
 
@@ -8,17 +8,23 @@ worker collects the same tests. Tolerances are relative to the largest
 plain value (of each bucket, for K2): 1e-5 for K1 and its backward (the
 same sums; only FMA contraction differs), and 1e-4 for K2 and its backward
 (fp32 division and square-root rounding through the 2x2 inverse, and row
-sums taken in another order).
+sums taken in another order). K5 (the LSTM recurrence) is held to 1e-4
+absolute on h, |h| < 1: accurate expf/tanhf against the CPU's sigmoid and
+tanh, and gate sums in another order, carried through thousands of steps
+of a contractive recurrence.
 """
 
 import pytest
 import torch
 
+from xumx_slicq_torch.kernels.lstm_recurrence import (RecurrenceLayout, lstm_recurrence,
+                                                      lstm_recurrence_grouped_plain, pack_recurrent_weights)
 from xumx_slicq_torch.kernels.synth_assembly import (synth_assembly, synth_assembly_backward,
                                                      synth_assembly_backward_plain, synth_assembly_plain)
 from xumx_slicq_torch.kernels.wiener_em import (stability_scale, wiener_em, wiener_em_backward,
                                                 wiener_em_backward_plain, wiener_em_grouped,
                                                 wiener_em_grouped_plain, wiener_em_plain)
+from xumx_slicq_torch.models import Unmix
 from xumx_slicq_torch.ops import wiener as wiener_ops
 from xumx_slicq_torch.ops.packed import PackedBlocks
 from xumx_slicq_torch.ops.slicqt import SliCQT
@@ -28,6 +34,7 @@ pytestmark = pytest.mark.cuda
 MEL12 = dict(scale="mel", fbins=12, fmin=200.0)
 K2_LAUNCHES = 3                                    # device launches per K2 call, any number of buckets
 TRAIN_LEN = 2 * 44100                             # the training layout: batch 32 of 2.0 s
+K5_TOL = 1e-4
 
 
 @pytest.fixture
@@ -234,3 +241,73 @@ def test_k2_two_forwards_then_one_backward(cuda):
     torch.cuda.synchronize()
     assert torch.equal(g1, alone)
     assert torch.isfinite(torch.autograd.grad(y2, vr2, gy)[0]).all()
+
+
+def _k5_inputs(shapes, realtime, device, seed):
+    """A K5 layout of block shapes (B, C, F, S, T) as the LSTM model sizes
+    it, projections of the spread a trained model gives, and W_hh at
+    torch's init bound."""
+    from xumx_slicq_torch.models.lstm import SlicedLSTM
+
+    blocks = [SlicedLSTM(C, F, T, realtime=realtime) for (_, C, F, _, T) in shapes]
+    layout = RecurrenceLayout([b.lstm_hidden for b in blocks], [s[3] * s[4] for s in shapes], shapes[0][0],
+                              1 if realtime else 2)
+    g = torch.Generator().manual_seed(seed)
+    xp = torch.randn(layout.xp_size, generator=g) * 2
+    w_hh = [(torch.rand((4, layout.dirs, 4 * h, h), generator=g) * 2 - 1) / h ** 0.5 for h in layout.hidden]
+    return layout, xp.to(device), pack_recurrent_weights(w_hh).to(device)
+
+
+@pytest.mark.parametrize("cfg,realtime", [(MEL12, False), ({}, False), ({}, True)],
+                         ids=["mel-12", "bark-262-offline", "bark-262-realtime"])
+def test_k5_matches_plain(cuda, cfg, realtime):
+    """One launch over every bucket at chunk batch 4 of 2 s (at bark-262
+    H = 1..43 offline, both directions, and up to H = 86 realtime) against
+    the grouped plain version on the CPU."""
+    t = SliCQT(device=cuda, **cfg)
+    layout, xp, w = _k5_inputs(t.block_shapes(4, 2, 2 * 44100), realtime, cuda, seed=14)
+    if not cfg:
+        assert max(layout.hidden) == (86 if realtime else 43)
+    before = lstm_recurrence.launches
+    out = lstm_recurrence(xp, w, layout)
+    torch.cuda.synchronize()
+    assert lstm_recurrence.launches == before + 1
+    ref = lstm_recurrence_grouped_plain(xp.cpu(), w.cpu(), layout)
+    assert torch.isfinite(out).all()
+    assert float((out.cpu() - ref).abs().max()) <= K5_TOL
+
+
+def test_k5_reverse_direction_keeps_positions(cuda):
+    """With W_hh = 0 and the forget gate shut (its projection -100), each
+    step stands alone: h at position s is o tanh(i g) of xp at s, for both
+    directions, so a direction written in walk order instead of at its
+    positions would show."""
+    layout = RecurrenceLayout([1, 9, 17], [50, 37, 20], 2, 2)
+    g = torch.Generator().manual_seed(15)
+    xp = torch.randn(layout.xp_size, generator=g)
+    for x, H in zip(layout.xp_blocks(xp), layout.hidden):
+        x[..., H:2 * H] = -100.0
+    out = lstm_recurrence(xp.to(cuda), torch.zeros(layout.w_size, device=cuda), layout).cpu()
+    for x, h in zip(layout.xp_blocks(xp), layout.h_blocks(out)):
+        i, _, gg, o = x.split(x.shape[-1] // 4, dim=-1)           # (4, dirs, frames, B, H)
+        alone = torch.sigmoid(o) * torch.tanh(torch.sigmoid(i) * torch.tanh(gg))
+        assert float((h - alone.permute(0, 2, 3, 1, 4).reshape(h.shape)).abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize("realtime", [False, True], ids=["offline", "realtime"])
+def test_lstm_unmix_on_card_matches_cpu(cuda, realtime):
+    """The LSTM model at mel-12 on the card (three K5 launches, one a layer)
+    against the same model on the CPU."""
+    t = SliCQT(device=cuda, **MEL12)
+    x = torch.randn((1, 2, 44100), generator=torch.Generator().manual_seed(16)) * 0.1
+    X = t.forward(x.to(cuda))
+    shapes = [tuple(b.shape) for b in X]
+    model = Unmix(shapes, realtime=realtime, lstm=True, seed=4, device=cuda)
+    cpu = Unmix(shapes, realtime=realtime, lstm=True, seed=4, device="cpu")
+    before = lstm_recurrence.launches
+    with torch.inference_mode():
+        _, masks = model.apply(X, model.inference_weights())
+        torch.cuda.synchronize()
+        assert lstm_recurrence.launches == before + 3
+        _, ref = cpu.apply([b.cpu() for b in X])
+    assert max(float((a.cpu() - b).abs().max()) for a, b in zip(masks, ref)) <= 1e-5

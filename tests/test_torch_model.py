@@ -1,6 +1,7 @@
 """The port's CDAE / Unmix against the JAX package's, under shared weights.
 
-Weights are the JAX package's seeded init with BatchNorm statistics and
+Weights are a seeded init (made once for the module, read into the JAX
+package through the reference's names) with BatchNorm statistics and
 affines perturbed (so that folding matters), moved into the port with
 params_from_jax. The convs run in fp32 on both sides; tolerances are
 relative to the largest value, at 1e-5 (measured ~4e-7), except where noted.
@@ -53,10 +54,17 @@ def test_dec2_strided_conv_transpose_matches_ola(realtime):
     assert rel_err(out.reshape(ref.shape), ref) < REL_TOL
 
 
-def _perturbed_jax_weights(shapes, realtime, seed=1):
-    ju = JaxUnmix(shapes, realtime=realtime)
-    params, stats = ju.init(jax.random.PRNGKey(seed))
-    rng = np.random.default_rng(seed)
+@pytest.fixture(scope="module")
+def weights_and_blocks():
+    """Weights for both variants, made once: a seeded init under the
+    reference's names, read by the JAX package's importer (no JAX init
+    program to compile), with BatchNorm and whitening perturbed; and mel-12
+    mixture blocks of a 0.3 s batch of 2."""
+    j = JaxSliCQT(**MEL12)
+    shapes = j.block_shapes(1, 2, TINY_LEN)
+    ref_sd = to_reference_state_dict(Unmix(shapes, seed=1, device=DEVICE))
+    params, stats = import_cdae_state_dict({k: v.numpy() for k, v in ref_sd.items()}, len(shapes))
+    rng = np.random.default_rng(1)
 
     def jitter(path, a):
         a = np.asarray(a)
@@ -71,15 +79,14 @@ def _perturbed_jax_weights(shapes, realtime, seed=1):
 
     params = jax.tree_util.tree_map_with_path(jitter, params)
     stats = jax.tree_util.tree_map_with_path(jitter, stats)
-    return ju, params, stats
+    X = [np.array(b) for b in jax.jit(j.forward)(jnp.asarray(noise(4, (2, 2, TINY_LEN), 0.1)))]
+    return shapes, params, stats, X
 
 
 @pytest.mark.parametrize("realtime", [False, True], ids=["offline", "realtime"])
-def test_unmix_apply_matches_jax(realtime):
-    j = JaxSliCQT(**MEL12)
-    shapes = j.block_shapes(1, 2, TINY_LEN)
-    ju, params, stats = _perturbed_jax_weights(shapes, realtime)
-    X = [np.array(b) for b in jax.jit(j.forward)(jnp.asarray(noise(4, (2, 2, TINY_LEN), 0.1)))]
+def test_unmix_apply_matches_jax(weights_and_blocks, realtime):
+    shapes, params, stats, X = weights_and_blocks
+    ju = JaxUnmix(shapes, realtime=realtime)
     Y_ref, M_ref, _ = jax.jit(lambda p, X: ju.apply(p, None, X))(ju.fold_batchnorm(params, stats), X)
 
     model = Unmix(shapes, realtime=realtime, device=DEVICE)

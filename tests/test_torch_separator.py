@@ -112,16 +112,17 @@ print(json.dumps({"skipped": skipped, "bad": bad,
 
 
 def test_port_never_imports_jax():
-    """Every port module (the trainer's among them) and chip_smoke.py
-    import without jax, flax or the JAX package; only the Triton module
-    needs triton (absent here)."""
+    """Every port module (the trainer's and the LSTM's among them) and
+    chip_smoke.py import without jax, flax or the JAX package; only the
+    Triton module needs triton (absent here)."""
     res = subprocess.run([sys.executable, "-c", _ISOLATION, str(ROOT)], capture_output=True, text=True,
                          timeout=120, cwd=ROOT)
     assert res.returncode == 0, res.stderr
     out = json.loads(res.stdout.strip().splitlines()[-1])
     assert out["bad"] == []
-    assert len(out["ported"]) >= 18
-    assert {f"xumx_slicq_torch.{m}" for m in ("data", "loss", "training")} <= set(out["ported"])
+    assert len(out["ported"]) >= 25
+    assert {f"xumx_slicq_torch.{m}" for m in ("data", "loss", "training", "models.lstm",
+                                              "kernels.lstm_recurrence")} <= set(out["ported"])
     try:
         import triton  # noqa: F401
         assert out["skipped"] == []

@@ -2,8 +2,9 @@
 
 One train step: the same numpy batch (batch 2 of 0.3 s, the setup of
 tests/test_grad_hardening.py) and the same weights (the JAX package's
-seeded init, BatchNorm affines perturbed, moved with params_from_jax) go
-through JAX `make_train_step` and the port's. The JAX optimizer is a chain
+seeded init, made once for the module's step tests, BatchNorm affines
+perturbed, moved with params_from_jax) go through JAX `make_train_step` and
+the port's. The JAX optimizer is a chain
 whose first link keeps the gradients in its state, then AdamW, so one
 call gives both. Tolerances, with their reasons:
 * loss: relative 1e-5 (fp32 sums in another order);
@@ -64,9 +65,15 @@ def _keep_grads():
                                         lambda u, state, params=None: (u, u))
 
 
-def _jax_weights(shapes, realtime, amp):
-    ju = JaxUnmix(shapes, realtime=realtime, amp=amp)
-    params, stats = ju.init(jax.random.PRNGKey(1))
+@pytest.fixture(scope="module")
+def weights():
+    """One set of weights for every step test, made once (the JAX init
+    program takes ~12 s to compile): the JAX package's seeded init, which
+    is the same offline, realtime and with bf16 convs (init_cdae_params
+    reads neither flag), with BatchNorm and whitening moved as training
+    moves them."""
+    shapes = JaxSliCQT(**MEL12).block_shapes(BATCH, 2, TINY_LEN)
+    params, stats = JaxUnmix(shapes).init(jax.random.PRNGKey(1))
     rng = np.random.default_rng(1)
 
     def jitter(path, a):
@@ -82,7 +89,7 @@ def _jax_weights(shapes, realtime, amp):
             return a * rng.uniform(0.5, 2.0, a.shape).astype(np.float32)
         return a
 
-    return ju, jax.tree_util.tree_map_with_path(jitter, params), jax.tree.map(np.array, stats)
+    return shapes, jax.tree_util.tree_map_with_path(jitter, params), jax.tree.map(np.array, stats)
 
 
 def _port_step(shapes, weights, batch, realtime=False, sdr_mcoef=-1.0, amp=False):
@@ -100,7 +107,7 @@ def _norm_rel(a, b, floor=0.0) -> float:
 
 
 @pytest.mark.parametrize("realtime,sdr_mcoef", [(False, 0.1), (True, -1.0)], ids=["offline-sdsdr", "realtime"])
-def test_train_step_matches_jax(realtime, sdr_mcoef):
+def test_train_step_matches_jax(weights, realtime, sdr_mcoef):
     """One step, offline with every loss term (complex MSE, mask sum and
     SD-SDR, so gradients pass K2's and K1's backward) and realtime. The
     whitening of a one-bin bucket has a gradient that train-mode BatchNorm
@@ -108,8 +115,8 @@ def test_train_step_matches_jax(realtime, sdr_mcoef):
     1e-3 of the largest gradient norm instead of their own rounding noise."""
     batch = _batch()
     j = JaxSliCQT(**MEL12)
-    shapes = j.block_shapes(BATCH, 2, TINY_LEN)
-    ju, params, stats = _jax_weights(shapes, realtime, amp=False)
+    shapes, params, stats = weights
+    ju = JaxUnmix(shapes, realtime=realtime)
     opt = optax.chain(_keep_grads(), optax.adamw(LR, weight_decay=WD))
     jstep, _ = jax_make_train_step(j, ju, opt, sdr_mcoef=sdr_mcoef)
     before = params_from_jax(params, stats)
@@ -133,14 +140,14 @@ def test_train_step_matches_jax(realtime, sdr_mcoef):
             assert float((a - before[name]).abs().max()) <= LR * (1.01 + WD * float(a.abs().max())), name
 
 
-def test_bf16_train_step_matches_jax_amp():
+def test_bf16_train_step_matches_jax_amp(weights):
     """--bf16: the port's step with bf16 conv operands against the JAX
     package's amp=True loss (the train step's loss_fn, training.py:245-260,
     evaluated forward only). Master weights stay float32."""
     batch = _batch()
     j = JaxSliCQT(**MEL12)
-    shapes = j.block_shapes(BATCH, 2, TINY_LEN)
-    ju, params, stats = _jax_weights(shapes, realtime=False, amp=True)
+    shapes, params, stats = weights
+    ju = JaxUnmix(shapes, amp=True)
 
     @jax.jit
     def jax_loss(params, stats, batch):

@@ -8,6 +8,7 @@ so a cold start pays for the slowest file only.
 """
 
 import ctypes
+import functools
 import os
 import shutil
 import subprocess
@@ -79,3 +80,13 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_lib_path(name)))
         _loaded[name] = lib
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def function(lib: str, name: str, argtypes: tuple):
+    """The C function `name` of csrc/<lib>.cu with its argument types,
+    bound once; it returns a cudaError code."""
+    fn = getattr(load(lib), name)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn

@@ -91,22 +91,15 @@ def synth_assembly_backward_plain(g: torch.Tensor, table: SynthTable) -> torch.T
     return torch.complex((gg.real * table.tw_re).sum(-1), (gg.imag * table.tw_im).sum(-1))
 
 
-def _lib_fn(name: str, argtypes):
-    fn = getattr(build.load("synth_assembly"), name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def _launch_forward(flat: torch.Tensor, table: SynthTable) -> torch.Tensor:
     N, S, raw_len = flat.shape
     nh, O = table.idx.shape
     out = torch.empty((N, S, nh), dtype=torch.complex64, device=flat.device)
-    fn = _lib_fn("synth_assembly", [
+    fn = build.function("synth_assembly", "synth_assembly", (
         ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
         ctypes.c_int32, ctypes.c_void_p,
-    ])
+    ))
     stream = torch.cuda.current_stream(flat.device).cuda_stream
     rc = fn(
         flat.data_ptr(), raw_len, table.idx.data_ptr(), table.w_re.data_ptr(),
@@ -136,11 +129,11 @@ def synth_assembly_backward(g: torch.Tensor, table: SynthTable) -> torch.Tensor:
     N, S, nh = g.shape
     W = table.tidx.shape[1]
     out = torch.empty((N, S, table.raw_len), dtype=torch.complex64, device=g.device)
-    fn = _lib_fn("synth_assembly_backward", [
+    fn = build.function("synth_assembly", "synth_assembly_backward", (
         ctypes.c_void_p, ctypes.c_int32, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32, ctypes.c_int64,
         ctypes.c_int32, ctypes.c_void_p,
-    ])
+    ))
     stream = torch.cuda.current_stream(g.device).cuda_stream
     rc = fn(
         g.data_ptr(), nh, table.tidx.data_ptr(), table.tw_re.data_ptr(), table.tw_im.data_ptr(),

@@ -36,6 +36,13 @@ def batch_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return y + bias[None, :, None, None]
 
 
+def batch_norm1d(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                 mean: torch.Tensor, var: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Eval BatchNorm1d over the last axis (features), in the JAX
+    package's order of operations (lstm.py:127-142)."""
+    return (x - mean) * torch.rsqrt(var + eps) * scale + bias
+
+
 def kaiming_uniform_(w: torch.Tensor, fan_in: int, generator: torch.Generator) -> torch.Tensor:
     """torch's Conv2d default init, kaiming_uniform(a=sqrt(5)):
     U(-sqrt(1/fan_in), sqrt(1/fan_in)). The caller passes the fan-in of

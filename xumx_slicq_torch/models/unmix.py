@@ -1,13 +1,15 @@
 """Unmix: the 4-target mask network over all sliCQT buckets.
 
-Port of xumx_slicq_tpu/models/unmix.py (CDAE variant): one SlicedCDAE per
-bucket, the sigmoid masks multiplied into the mixture magnitude, then the
-embedded Wiener-EM (offline) or mix-phase (realtime) reconstruction
-(model.py:263-269). The model is built in eval mode, where BatchNorm runs
-from its running statistics or folded into the convs; the trainer calls
-`.train()`, where BatchNorm runs on batch statistics and updates its
-running buffers (unmix.py:121-165), and gradients flow through K2's
-backward kernel to the masks.
+Port of xumx_slicq_tpu/models/unmix.py: one SlicedCDAE (or, with
+lstm=True, one SlicedLSTM) per bucket, the sigmoid masks multiplied into
+the mixture magnitude, then the embedded Wiener-EM (offline) or mix-phase
+(realtime) reconstruction (model.py:263-269). The model is built in eval
+mode, where BatchNorm runs from its running statistics or folded into the
+convs; the trainer calls `.train()` on the CDAE model, where BatchNorm runs
+on batch statistics and updates its running buffers (unmix.py:121-165), and
+gradients flow through K2's backward kernel to the masks. The LSTM model
+serves only (eval mode): its buckets' recurrences run together, one K5
+launch per layer (models/lstm.py).
 """
 
 from typing import List, Optional, Sequence, Tuple
@@ -19,6 +21,7 @@ from ..device import resolve_device
 from ..ops import wiener as wiener_ops
 from ..ops.packed import PackedBlocks, layout_of
 from .cdae import SlicedCDAE
+from .lstm import SlicedLSTM, lstm_masks, recurrent_weights
 
 
 class Unmix(nn.Module):
@@ -31,6 +34,7 @@ class Unmix(nn.Module):
         self,
         block_shapes: Sequence[Tuple[int, ...]],
         realtime: bool = False,
+        lstm: bool = False,
         input_means: Optional[Sequence] = None,
         input_scales: Optional[Sequence] = None,
         wiener_iterations: int = 1,
@@ -42,16 +46,23 @@ class Unmix(nn.Module):
         device="cuda",
     ):
         """amp: bf16 conv operands with float32 results (`nn.amp_op`), the
-        JAX package's mixed-precision training (unmix.py:44-48)."""
+        JAX package's mixed-precision training (unmix.py:44-48); CDAE only.
+        lstm: SlicedLSTM blocks (unmix.py:65-78); the hidden sizes and time
+        filter are the CDAE's and do not apply."""
         super().__init__()
         dev = resolve_device(device)
+        if lstm and amp:
+            raise NotImplementedError("LSTM training (amp): next slice of the port")
         self.realtime = realtime
+        self.lstm = lstm
         self.amp = amp
         self.wiener_iterations = wiener_iterations
-        self.blocks = nn.ModuleList([
-            SlicedCDAE(C, F, T, hidden_size_1, hidden_size_2, time_filter_2, realtime=realtime, amp=amp)
-            for (_, C, F, _, T) in block_shapes
-        ])
+        if lstm:
+            blocks = [SlicedLSTM(C, F, T, realtime=realtime) for (_, C, F, _, T) in block_shapes]
+        else:
+            blocks = [SlicedCDAE(C, F, T, hidden_size_1, hidden_size_2, time_filter_2, realtime=realtime, amp=amp)
+                      for (_, C, F, _, T) in block_shapes]
+        self.blocks = nn.ModuleList(blocks)
         gen = torch.Generator().manual_seed(seed)
         for i, blk in enumerate(self.blocks):
             blk.reset_parameters(gen)
@@ -65,19 +76,34 @@ class Unmix(nn.Module):
 
     def fold_batchnorm(self) -> List[dict]:
         """Per-bucket folded conv weights (cdae.fold_cdae_batchnorm), for
-        apply(folded=...)."""
+        apply(prepared=...). The LSTM's BatchNorm is not folded
+        (unmix.py:171-172)."""
+        if self.lstm:
+            raise ValueError("BN folding applies to the CDAE variant only")
         return [blk.fold_batchnorm() for blk in self.blocks]
 
-    def magnitudes(self, Xcomplex: Sequence[torch.Tensor], folded: Optional[List[dict]] = None):
+    def inference_weights(self) -> list:
+        """What apply(prepared=...) reads on the inference path, built once
+        per model on its device: the CDAE's BatchNorm folded into its convs,
+        or the LSTM's per-layer packed recurrent weights for K5."""
+        with torch.no_grad():
+            return recurrent_weights(self.blocks) if self.lstm else self.fold_batchnorm()
+
+    def magnitudes(self, Xcomplex: Sequence[torch.Tensor], prepared: Optional[list] = None):
         """The masks and the target magnitude estimates masks * |X|.
+        prepared: `inference_weights()`, or None to run from the modules'
+        own weights.
 
         Returns (Ymags, Ymasks): Ymags is a `PackedBlocks` of
         (4, B, C, F, S, T) views of one float32 buffer, in the layout of
         Xcomplex when that is packed; Ymasks a list of per-bucket masks."""
         layout = layout_of(Xcomplex)
         Xmags = [torch.abs(x) for x in Xcomplex]
-        Ymasks = [blk(xm, None if folded is None else folded[i])
-                  for i, (blk, xm) in enumerate(zip(self.blocks, Xmags))]
+        if self.lstm:
+            Ymasks = lstm_masks(self.blocks, Xmags, prepared)
+        else:
+            Ymasks = [blk(xm, None if prepared is None else prepared[i])
+                      for i, (blk, xm) in enumerate(zip(self.blocks, Xmags))]
         if torch.is_grad_enabled() and any(m.requires_grad for m in Ymasks):
             # out= writes do not support autograd: concatenate instead
             packed = torch.cat([(m * xm[None]).reshape(-1) for m, xm in zip(Ymasks, Xmags)])
@@ -87,21 +113,21 @@ class Unmix(nn.Module):
             torch.mul(m, xm[None], out=dst)           # multiplicative skip connection
         return Ymags, Ymasks
 
-    def forward(self, Xcomplex: Sequence[torch.Tensor], folded: Optional[List[dict]] = None):
+    def forward(self, Xcomplex: Sequence[torch.Tensor], prepared: Optional[list] = None):
         """Xcomplex: list of (B, C, F, S, T) complex mixture blocks.
         Returns (Ycomplex, Ymasks): lists of (4, B, C, F, S, T) complex
         estimates and float masks, as the JAX package's Unmix.apply."""
-        Ymags, Ymasks = self.magnitudes(Xcomplex, folded)
+        Ymags, Ymasks = self.magnitudes(Xcomplex, prepared)
         if self.realtime:
             Ycomplex = wiener_ops.phasemix_blocks(Xcomplex, Ymags)
         else:
             Ycomplex = wiener_ops.wiener_blocks(Xcomplex, Ymags, self.wiener_iterations)
         return Ycomplex, Ymasks
 
-    def apply(self, Xcomplex: Sequence[torch.Tensor], folded: Optional[List[dict]] = None):
+    def apply(self, Xcomplex: Sequence[torch.Tensor], prepared: Optional[list] = None):
         """The JAX package's name for the forward pass. It shadows
         nn.Module.apply(fn); walk submodules with `modules()` instead."""
-        return self(Xcomplex, folded)
+        return self(Xcomplex, prepared)
 
     def num_params(self) -> int:
         return sum(p.numel() for p in self.parameters())

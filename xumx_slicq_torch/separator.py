@@ -1,14 +1,18 @@
 """Separator: the port's inference engine.
 
 Port of xumx_slicq_tpu/separator.py. One chunk runs sliCQT analysis ->
-Unmix (BatchNorm folded; embedded Wiener-EM or mix-phase) -> the 4 targets
-folded into the batch -> one inverse sliCQT. Chunking keeps the JAX
-package's contract: the default chunk is 2,621,440 samples (~59.4 s), the
-last chunk is zero-padded to the full chunk size (exact: slicing, the CDAE,
-eval BatchNorm and the Wiener-EM statistics are invariant to appended zero
-slices), a single track of 2..8 chunks runs as one chunk batch padded to 1,
-2, 4 or 8, and anything else runs chunk by chunk with the results left on
-the device until the end.
+Unmix (the CDAE with BatchNorm folded, or the LSTM with K5's packed
+recurrent weights; embedded Wiener-EM or mix-phase) -> the 4 targets folded
+into the batch -> one inverse sliCQT. Chunking keeps the JAX package's
+contract: the default chunk is 2,621,440 samples (~59.4 s), the last chunk
+is zero-padded to the full chunk size, a single track of 2..8 chunks runs as
+one chunk batch padded to 1, 2, 4 or 8, and anything else runs chunk by
+chunk with the results left on the device until the end. For the CDAE the
+padding is exact (slicing, the CDAE, eval BatchNorm and the Wiener-EM
+statistics are invariant to appended zero slices and zero chunks). For the
+LSTM it is not: its literal reshapes (models/lstm.py) mix the chunks of a
+chunk batch, zero chunks included, into each sequence, so its stems depend
+on this batching, and the port keeps it exactly as the JAX package does.
 
 Model directories hold a JSON manifest (`xumx_slicq_tpu.json` or the
 reference's `xumx_slicq_v2.json`) and weights as a reference-named torch
@@ -67,10 +71,10 @@ class Separator:
         self.sample_rate = sample_rate
         self.chunk_size = chunk_size if chunk_size is not None else sys.maxsize
         self.quiet = quiet
-        # inference is eval-only: BatchNorm is folded into the conv weights
-        # once here (cdae.fold_cdae_batchnorm), not on every chunk
-        with torch.no_grad():
-            self._folded = model.fold_batchnorm()
+        # inference is eval-only: the CDAE's BatchNorm is folded into the conv
+        # weights (cdae.fold_cdae_batchnorm), the LSTM's recurrent weights are
+        # packed for K5, once here and not on every chunk
+        self._prepared = model.inference_weights()
 
     # -- chunk pipeline ------------------------------------------------------
 
@@ -78,7 +82,7 @@ class Separator:
         """(B, C, L) on the device -> (4, B, C, L) estimates on the device."""
         chunk_len = audio.shape[-1]
         X = self.slicqt.forward(audio)                       # list[(B,C,F,S,M)]
-        Y, _ = self.model.apply(X, self._folded)
+        Y, _ = self.model.apply(X, self._prepared)
         # targets folded into the batch for one inverse transform
         est = self.slicqt.backward([y.reshape((-1,) + y.shape[2:]) for y in Y], chunk_len)
         return est.reshape(4, -1, est.shape[1], chunk_len)
@@ -172,8 +176,6 @@ class Separator:
             raise ValueError("model_path is required (no bundled pretrained weights in this build)")
         model_path = Path(model_path).expanduser()
         args = load_manifest(model_path)["args"]
-        if args.get("lstm", False):
-            raise NotImplementedError("the LSTM variant is not ported yet")
 
         slicqt = SliCQT(
             scale=args["fscale"], fbins=args["fbins"], fmin=args["fmin"],
@@ -189,7 +191,7 @@ class Separator:
                 file=sys.stderr,
             )
         model = Unmix(
-            shapes, realtime=args.get("realtime", realtime),
+            shapes, realtime=args.get("realtime", realtime), lstm=args.get("lstm", False),
             hidden_size_1=args.get("hidden_size_1", 50),
             hidden_size_2=args.get("hidden_size_2", 51),
             time_filter_2=args.get("time_filter_2", 4),

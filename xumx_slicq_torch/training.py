@@ -274,7 +274,7 @@ def training_main(argv=None, epoch_callback=None):
     Returns the train and valid loss histories."""
     args = build_argparser().parse_args(argv)
     if args.lstm:
-        raise NotImplementedError("--lstm: the LSTM variant is not ported yet (slice 4 of the port)")
+        raise NotImplementedError("--lstm: training the LSTM variant is not ported yet (it serves only)")
     if args.n_devices > 1 or args.tp > 1:
         raise NotImplementedError("--n-devices/--tp > 1: multi-card training is ROADMAP.md item 10, not ported yet")
     device = resolve_device(args.device)
