@@ -19,6 +19,11 @@ Then the training path: K1's and K2's backward kernels against their plain versi
 at the training shapes, one train step on the card against the CPU at
 mel-12, 13 full-width train steps (batch 32 of 2.0 s) with launch counts,
 memory and a profile, and the trainer's CLI with a resume and a reload.
+Last, training the LSTM variant: K5's train-mode forward and K5b (its
+backward through time) against their plain versions at the training
+layout, offline and realtime, timed beside cuDNN's LSTM; one LSTM train
+step on the card against the CPU at mel-12; 13 canonical LSTM train steps
+with K5 and K5b launches counted; and the trainer's CLI with --lstm.
 Weights are random, drawn from a seed. Any failed check exits non-zero.
 
 Output: one line per phase; before the last line, the card's name and power
@@ -66,6 +71,19 @@ LSTM_PARAMS = {False: 976174, True: 1213294}    # the JAX package's counts at ba
 # side), the cell update (multiply and FMA, 8), tanhf(c) (~45) and the output product (4): ~120
 STEP_CHAIN_CYCLES = 120
 CUDNN_MAX_STEPS = 65535         # cuDNN's LSTM refuses longer sequences (CUDNN_STATUS_NOT_SUPPORTED on an H100)
+# K5b against its plain version on the card, from the same h and c, max |kernel - plain| / max |plain| of
+# d(xp) and of d(W_hh^T): the same arithmetic in another order (FMA contraction, libm's tanhf, sums of the
+# matvec in another order), carried back through up to 3,212 steps
+K5B_TOL = 1e-4
+# One K5b step's dependent chain in cycles, reckoned from csrc/lstm_recurrence.cu for the one-lane group:
+# dh = dh_out + dh_rec (add, 4), dc = dc_rec + dh o (1 - tc^2) (multiply and FMA, 8), the four gate
+# gradients side by side (three dependent multiplies, 12) and dh_rec, four dependent FMAs (16): ~40. The
+# gate recompute reads only saved values and lies off the chain.
+STEP_CHAIN_CYCLES_BACKWARD = 40
+# LSTM train step, card against CPU at mel-12: gradients ||cuda - cpu|| / max(||cpu||, 1e-2 of the largest
+# norm) per tensor. Train-mode BatchNorm after the LSTM leaves some gradients (the last layer's biases, the
+# whitening) small remainders of cancelling sums, whose float32 rounding reaches 1e-5 of the largest norm
+LSTM_GRAD_FLOOR = 1e-2
 
 
 def fail(msg: str):
@@ -293,29 +311,33 @@ def k5_inputs(slicqt, batch: int, S: int, realtime: bool, g):
     return layout, xp, pack_recurrent_weights(w_hh)
 
 
-def cudnn_lstm_ms(layout, xp, w, max_steps=None) -> float:
-    """The yardstick for K5: cuDNN's LSTM (torch.nn.LSTM) computing the same
-    function, one call per (bucket, target, direction) with W_ih = I and
-    zero biases on K5's own projections, each call's device time summed.
-    One call per direction because the directions' projections differ.
-    Timed here only; the port never calls it. max_steps: leave out the
-    buckets with longer sequences."""
-    total = 0.0
-    with torch.no_grad():
-        for k, (x, wt) in enumerate(zip(layout.xp_blocks(xp), layout.w_blocks(w))):
-            H = layout.hidden[k]
-            if max_steps is not None and layout.frames[k] > max_steps:
-                continue
-            m = torch.nn.LSTM(4 * H, H).to(xp.device)
+def cudnn_lstms(layout, xp, w, max_steps=None):
+    """cuDNN's LSTM (torch.nn.LSTM) set up to compute K5's function, one
+    call per (bucket, target, direction): W_ih = I and zero biases on K5's
+    own projections, W_hh from w. One call per direction because the
+    directions' projections differ. Yields (module, projections in walk
+    order, bucket, target, direction); max_steps leaves out the buckets with
+    longer sequences. For yardsticks timed here only; the port never calls it."""
+    for k, (x, wt) in enumerate(zip(layout.xp_blocks(xp), layout.w_blocks(w))):
+        H = layout.hidden[k]
+        if max_steps is not None and layout.frames[k] > max_steps:
+            continue
+        m = torch.nn.LSTM(4 * H, H).to(xp.device)
+        with torch.no_grad():
             m.weight_ih_l0.copy_(torch.eye(4 * H))
             m.bias_ih_l0.zero_()
             m.bias_hh_l0.zero_()
-            for t in range(4):
-                for d in range(layout.dirs):
+        for t in range(4):
+            for d in range(layout.dirs):
+                with torch.no_grad():
                     m.weight_hh_l0.copy_(wt[t, d].T)
-                    seq = x[t, d] if d == 0 else x[t, d].flip(0)          # (frames, B, 4H) in walk order
-                    total += cuda_ms(lambda: m(seq), reps=1, warm=1)
-    return total
+                yield m, (x[t, d] if d == 0 else x[t, d].flip(0)), k, t, d
+
+
+def cudnn_lstm_ms(layout, xp, w, max_steps=None) -> float:
+    """The yardstick for K5: the device time of cudnn_lstms' forward calls, summed."""
+    with torch.no_grad():
+        return sum(cuda_ms(lambda: m(seq), reps=1, warm=1) for m, seq, *_ in cudnn_lstms(layout, xp, w, max_steps))
 
 
 def k5_lstm_recurrence(slicqt, g, kernels, batch: int, S: int):
@@ -472,11 +494,13 @@ def _train_batch(seed: int, length: int, batch: int) -> np.ndarray:
     return np.concatenate([stems.sum(1, keepdims=True), stems], axis=1)
 
 
-def train_cuda_vs_cpu(dev):
+def train_cuda_vs_cpu(dev, lstm: bool = False):
     """One train step with every loss term (so through K2's and K1's
-    backward kernels) at mel-12, batch 2 of 0.3 s, on the card and on the
-    CPU from the same weights and batch; and the card's step with bf16
-    conv operands (--bf16) against the CPU's fp32 loss."""
+    backward kernels, and with `lstm` K5's and K5b) at mel-12, batch 2 of
+    0.3 s, on the card and on the CPU from the same weights and batch (the
+    LSTM's dropout off); and the card's step with bf16 operands (--bf16)
+    against the CPU's fp32 loss."""
+    from xumx_slicq_torch.kernels.lstm_recurrence import lstm_recurrence, lstm_recurrence_backward
     from xumx_slicq_torch.models import Unmix
     from xumx_slicq_torch.ops.slicqt import SliCQT
     from xumx_slicq_torch.training import make_train_step
@@ -484,41 +508,51 @@ def train_cuda_vs_cpu(dev):
     length = int(0.3 * 44100)
     batch = _train_batch(1, length, 2)
     res = []
+    before = (lstm_recurrence.launches, lstm_recurrence_backward.launches)
     for d, amp in ((dev, False), (torch.device("cpu"), False), (dev, True)):
         t = SliCQT(scale="mel", fbins=12, fmin=200.0, device=d)
-        model = Unmix(t.block_shapes(2, 2, length), amp=amp, seed=1, device=d)
+        model = Unmix(t.block_shapes(2, 2, length), lstm=lstm, amp=amp, seed=1, device=d)
         opt = torch.optim.AdamW(model.parameters(), lr=1e-3, weight_decay=1e-5)
         step, _ = make_train_step(t, model, opt, sdr_mcoef=0.1)
         loss = float(step(torch.from_numpy(batch).to(d)))
         res.append((loss, {n: p.grad.cpu().double() for n, p in model.named_parameters()}))
+    k5 = (lstm_recurrence.launches - before[0], lstm_recurrence_backward.launches - before[1])
     (lg, gg), (lc, gc), (lb, _) = res
     bf16_rel = abs(lb - lc) / abs(lc)
     loss_rel = abs(lg - lc) / abs(lc)
     norms = {n: float(torch.linalg.vector_norm(a)) for n, a in gc.items()}
-    floor = 1e-3 * max(norms.values())          # gradients that train-mode BatchNorm cancels: rounding noise
-    grad_rel = max(float(torch.linalg.vector_norm(gg[n] - gc[n])) / max(norms[n], floor) for n in gc)
-    phase("train_cuda_vs_cpu", loss_cuda=lg, loss_cpu=lc, loss_rel=loss_rel, loss_tol=TRAIN_LOSS_TOL,
-          max_grad_rel=grad_rel, grad_tol=TRAIN_GRAD_TOL, tensors=len(gc), loss_cuda_bf16=lb,
-          bf16_loss_rel=bf16_rel, bf16_tol=BF16_LOSS_TOL)
-    check(np.isfinite(lg) and loss_rel <= TRAIN_LOSS_TOL, f"train loss on the card {lg} vs CPU {lc}")
-    check(grad_rel <= TRAIN_GRAD_TOL, f"train gradients on the card differ from the CPU: {grad_rel}")
-    check(bf16_rel <= BF16_LOSS_TOL, f"bf16 train loss on the card {lb} vs fp32 on the CPU {lc}")
+    # gradients that train-mode BatchNorm cancels, and with the LSTM its cancelling sums: rounding noise
+    floor = (LSTM_GRAD_FLOOR if lstm else 1e-3) * max(norms.values())
+    rels = {n: float(torch.linalg.vector_norm(gg[n] - gc[n])) / max(norms[n], floor) for n in gc}
+    worst = max(rels, key=rels.get)
+    name = "lstm_train_cuda_vs_cpu" if lstm else "train_cuda_vs_cpu"
+    phase(name, loss_cuda=lg, loss_cpu=lc, loss_rel=loss_rel, loss_tol=TRAIN_LOSS_TOL, max_grad_rel=rels[worst],
+          worst_tensor=worst, grad_tol=TRAIN_GRAD_TOL, grad_floor=floor / max(norms.values()), tensors=len(gc),
+          loss_cuda_bf16=lb, bf16_loss_rel=bf16_rel, bf16_tol=BF16_LOSS_TOL, k5_launches=k5[0], k5b_launches=k5[1])
+    check(np.isfinite(lg) and loss_rel <= TRAIN_LOSS_TOL, f"{name}: loss on the card {lg} vs CPU {lc}")
+    check(rels[worst] <= TRAIN_GRAD_TOL, f"{name}: gradients on the card differ from the CPU: {worst} {rels[worst]}")
+    check(bf16_rel <= BF16_LOSS_TOL, f"{name}: bf16 loss on the card {lb} vs fp32 on the CPU {lc}")
+    check(k5 == ((6, 6) if lstm else (0, 0)), f"{name}: the two card steps launched K5 and K5b {k5} times")
 
 
-def train_steps(dev, slicqt, kernels):
-    """The training path at full width: the canonical model, batch 32 of
-    2.0 s from a seeded SyntheticDataset, AdamW at the JAX trainer's
-    defaults. 10 steps on one fixed batch, then 3 steps with SD-SDR on
-    fresh batches from the loader, then one valid step; launches of every
-    kernel counted per step."""
+def train_steps(dev, slicqt, kernels, lstm: bool = False):
+    """The training path at full width: the canonical model (with `lstm`
+    the canonical LSTM model and the trainer's dropout, a generator
+    reseeded every step), batch 32 of 2.0 s from a seeded SyntheticDataset,
+    AdamW at the JAX trainer's defaults. 10 steps on one fixed batch, then 3
+    steps with SD-SDR on fresh batches from the loader, then one valid step;
+    launches of every kernel counted per step, peak memory and one profiled
+    step."""
     from xumx_slicq_torch.data import DataLoader, SyntheticDataset
+    from xumx_slicq_torch.kernels.lstm_recurrence import lstm_recurrence, lstm_recurrence_backward
     from xumx_slicq_torch.kernels.synth_assembly import synth_assembly, synth_assembly_backward
     from xumx_slicq_torch.kernels.wiener_em import wiener_em, wiener_em_backward
     from xumx_slicq_torch.models import Unmix
-    from xumx_slicq_torch.training import make_train_step
+    from xumx_slicq_torch.training import dropout_seed, make_train_step
 
     counters = {"synth_assembly": synth_assembly, "synth_assembly_backward": synth_assembly_backward,
-                "wiener_em": wiener_em, "wiener_em_backward": wiener_em_backward}
+                "wiener_em": wiener_em, "wiener_em_backward": wiener_em_backward,
+                "lstm_recurrence": lstm_recurrence, "lstm_recurrence_backward": lstm_recurrence_backward}
     loader = DataLoader(SyntheticDataset(n_tracks=8, seq_duration=TRAIN_SECONDS, samples_per_track=4, seed=0),
                         TRAIN_BATCH, shuffle=True, seed=0, drop_last=True, workers=4)
 
@@ -529,10 +563,18 @@ def train_steps(dev, slicqt, kernels):
         return batch
 
     fixed = next_batch()
-    model = Unmix(slicqt.block_shapes(TRAIN_BATCH, 2, int(TRAIN_SECONDS * 44100)), seed=0, device=dev)
+    model = Unmix(slicqt.block_shapes(TRAIN_BATCH, 2, int(TRAIN_SECONDS * 44100)), lstm=lstm, seed=0, device=dev)
+    n_params = model.num_params()
+    check(n_params == (LSTM_PARAMS[False] if lstm else 15010446), f"canonical Unmix has {n_params} parameters")
     opt = torch.optim.AdamW(model.parameters(), lr=1e-3, weight_decay=1e-5)
     step, valid = make_train_step(slicqt, model, opt)
     step_sdr, _ = make_train_step(slicqt, model, opt, sdr_mcoef=0.1)
+    dropout = torch.Generator(device=dev) if lstm else None
+
+    def run(i, batch, fn):
+        if dropout is not None:
+            dropout.manual_seed(dropout_seed(42, 1, i))
+        return fn(batch, dropout)
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -542,10 +584,7 @@ def train_steps(dev, slicqt, kernels):
     for i in range(13):
         before = {k: fn.launches for k, fn in counters.items()}
         t0 = time.time()
-        if i < 10:
-            loss = step(fixed)
-        else:
-            loss = step_sdr(next_batch())
+        loss = run(i, fixed, step) if i < 10 else run(i, next_batch(), step_sdr)
         losses.append(float(loss))                             # waits for the step
         times.append(time.time() - t0)
         per_step.append({k: fn.launches - before[k] for k, fn in counters.items()})
@@ -553,52 +592,158 @@ def train_steps(dev, slicqt, kernels):
     torch.cuda.synchronize()
     launches = {k: fn.launches for k, fn in counters.items()}
     peak = torch.cuda.max_memory_allocated()
-    wall, busy, n_launches, top, host_top = profiled(lambda: step(fixed))
-    phase("train_steps", batch=TRAIN_BATCH, seconds=TRAIN_SECONDS, params=model.num_params(), losses=losses,
-          valid_loss=vloss, first_step_s=times[0], step_s=times, median_ms_steps_3_10=float(np.median(times[2:10])) * 1e3,
+    wall, busy, n_launches, top, host_top = profiled(lambda: run(13, fixed, step))
+    name = "lstm_train_steps" if lstm else "train_steps"
+    phase(name, batch=TRAIN_BATCH, seconds=TRAIN_SECONDS, params=n_params, losses=losses, valid_loss=vloss,
+          first_step_s=times[0], step_s=times, median_ms_steps_3_10=float(np.median(times[2:10])) * 1e3,
           median_ms_sdr_steps=float(np.median(times[10:])) * 1e3, max_memory_allocated_bytes=peak,
           launches=launches, launches_per_step=per_step, profiled_step_wall_ms=wall,
           device_busy_ms=busy if busy is not None else "not measured",
           device_busy_share=busy / wall if busy is not None else "not measured", kernel_launches=n_launches,
           top_kernels=top, top_host_ops_ms=host_top)
-    check(all(np.isfinite(losses)) and np.isfinite(vloss), f"non-finite training loss: {losses}, valid {vloss}")
-    check(losses[9] < losses[0], f"the loss on the fixed batch did not fall: {losses[0]} -> {losses[9]}")
+    check(all(np.isfinite(losses)) and np.isfinite(vloss), f"{name}: non-finite loss: {losses}, valid {vloss}")
+    check(losses[9] < losses[0], f"{name}: the loss on the fixed batch did not fall: {losses[0]} -> {losses[9]}")
+    k5 = 3 if lstm else 0                                      # one launch a layer, forward and backward
     for i, n in enumerate(per_step):
         check(n["wiener_em"] == 3 and n["wiener_em_backward"] == 2, f"step {i + 1}: K2 launches {n}")
+        check(n["lstm_recurrence"] == k5 and n["lstm_recurrence_backward"] == k5, f"step {i + 1}: K5 launches {n}")
         sdr = i >= 10
         check((n["synth_assembly_backward"] > 0) == sdr and (n["synth_assembly"] > 0) == sdr,
               f"step {i + 1}: K1 launches {n} (SD-SDR {sdr})")
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched on the training path")
-        if name.endswith("_backward"):
-            kernels[name]["launches"] = n
+    path = ["synth_assembly", "wiener_em"] + (["lstm_recurrence"] if lstm else [])
+    for name in path:
+        check(launches[name] > 0 and launches[name + "_backward"] > 0, f"{name} or its backward was not launched")
+    for name in (["lstm_recurrence_backward"] if lstm else ["synth_assembly_backward", "wiener_em_backward"]):
+        kernels[name]["launches"] = launches[name]             # each backward kernel's count from its own path
 
 
-def trainer_cli(dev, clip):
+def trainer_cli(dev, clip, lstm: bool = False):
     """training_main on the card with its defaults (bark-262, AdamW,
-    plateau schedule), one short epoch, a resume for a second, then
-    Separator.load of the directory it wrote and a demix."""
+    plateau schedule; with `lstm`, --lstm), one short epoch, a resume for a
+    second, then Separator.load of the directory it wrote and a demix."""
     import shutil
 
     from xumx_slicq_torch.separator import Separator
     from xumx_slicq_torch.training import training_main
 
-    d = ROOT / "build" / "chip_smoke_model"
+    name = "lstm_trainer_cli" if lstm else "trainer_cli"
+    d = ROOT / "build" / f"chip_smoke_{name}"
     shutil.rmtree(d, ignore_errors=True)
     args = ["--synthetic-dataset", "--batch-size", "8", "--epochs", "1", "--max-batches-per-epoch", "3",
-            "--debug", "--model-path", str(d), "--quiet"]
+            "--debug", "--model-path", str(d), "--quiet"] + (["--lstm"] if lstm else [])
     t0 = time.time()
     train1, valid1 = training_main(args)
     args[args.index("--epochs") + 1] = "2"
     train2, valid2 = training_main(args)
     train_s = time.time() - t0
-    est = Separator.load(model_path=d, device=dev)(clip)
-    phase("trainer_cli", train_loss=train2, valid_loss=valid2, seconds=train_s,
+    sep = Separator.load(model_path=d, device=dev)
+    est = sep(clip)
+    phase(name, train_loss=train2, valid_loss=valid2, seconds=train_s, lstm=sep.model.lstm,
           files=sorted(p.name for p in d.iterdir()), stems_shape=list(est.shape))
-    check(len(train2) == 2 and train2[:1] == train1 and valid2[:1] == valid1, "resume lost the history")
-    check(all(np.isfinite(train2 + valid2)), f"non-finite trainer losses {train2} {valid2}")
-    check(est.shape == (4, 1, 2, clip.shape[-1]) and np.isfinite(est).all(), "bad stems from the trained model")
+    check(sep.model.lstm == lstm, f"{name}: the trained directory loaded with lstm={sep.model.lstm}")
+    check(len(train2) == 2 and train2[:1] == train1 and valid2[:1] == valid1, f"{name}: resume lost the history")
+    check(all(np.isfinite(train2 + valid2)), f"{name}: non-finite trainer losses {train2} {valid2}")
+    check(est.shape == (4, 1, 2, clip.shape[-1]) and np.isfinite(est).all(), f"{name}: bad stems")
     shutil.rmtree(d, ignore_errors=True)
+
+
+def cudnn_lstm_backward_ms(layout, xp, w, dh):
+    """The yardsticks for K5 in train mode and K5b: the device time of
+    cudnn_lstms' forward calls and of their backward calls (data and
+    weights, from the cotangent dh of h), each summed."""
+    fwd = bwd = 0.0
+    for m, seq, k, t, d in cudnn_lstms(layout, xp, w):
+        H = layout.hidden[k]
+        seq = seq.clone().requires_grad_(True)
+        gh = layout.h_blocks(dh)[k][t, :, :, d * H:(d + 1) * H]
+        gh = (gh if d == 0 else gh.flip(0)).contiguous()              # walk order
+        fwd += cuda_ms(lambda: m(seq), reps=1, warm=1)
+        out, _ = m(seq)
+        bwd += cuda_ms(lambda: torch.autograd.grad(out, (seq, m.weight_hh_l0), gh, retain_graph=True),
+                       reps=1, warm=1)
+        del out
+    return fwd, bwd
+
+
+def k5_backward(slicqt, g, kernels):
+    """K5's train-mode forward (h and the cell state c) and K5b against their
+    plain versions on the card at the training layout (batch 32 of 2 s:
+    3,212 steps at most, H up to 43 offline and 86 realtime), K5b from the
+    kernel's own h and c; a second K5b run must give the same bits. Per
+    layer: K5b's ms (its launch and the sum of its d(W_hh) rows), its byte
+    bound and serial floor, the plain versions' ms and cuDNN's."""
+    from xumx_slicq_torch.kernels.lstm_recurrence import (lstm_recurrence, lstm_recurrence_backward,
+                                                          lstm_recurrence_backward_grouped_plain,
+                                                          lstm_recurrence_grouped_plain, lstm_recurrence_with_cell)
+
+    S2 = slicqt.n_slices(int(TRAIN_SECONDS * 44100))
+    clock_mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                                     capture_output=True, text=True, timeout=60).stdout.split()[0])
+    res = {}
+    for realtime in (False, True):
+        name = "realtime" if realtime else "offline"
+        layout, xp, w = k5_inputs(slicqt, TRAIN_BATCH, S2, realtime, g)
+        dh = torch.randn(layout.h_size, generator=g, device=g.device)
+        before = (lstm_recurrence.launches, lstm_recurrence_backward.launches)
+        h, c = lstm_recurrence_with_cell(xp, w, layout)
+        dxp, dw = lstm_recurrence_backward(xp, w, h, c, dh, layout)
+        torch.cuda.synchronize()
+        check((lstm_recurrence.launches, lstm_recurrence_backward.launches) == (before[0] + 1, before[1] + 1),
+              "K5 train-mode forward and K5b: one launch each expected")
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        h_ref, c_ref = lstm_recurrence_grouped_plain(xp, w, layout, cell=True)
+        end.record()
+        end.synchronize()
+        fwd_plain_ms = start.elapsed_time(end)
+        h_err = float((h - h_ref).abs().max())
+        c_rel = float((c - c_ref).abs().max() / c_ref.abs().max())
+        del h_ref, c_ref
+        start.record()
+        dxp_ref, dw_ref = lstm_recurrence_backward_grouped_plain(xp, w, h, c, dh, layout)
+        end.record()
+        end.synchronize()
+        plain_ms = start.elapsed_time(end)
+        dxp_err = float((dxp - dxp_ref).abs().max())
+        dxp_rel = dxp_err / float(dxp_ref.abs().max())
+        dw_rel = float((dw - dw_ref).abs().max() / dw_ref.abs().max())
+        finite = bool(torch.isfinite(dxp).all() and torch.isfinite(dw).all())
+        del dxp_ref, dw_ref
+        dxp2, dw2 = lstm_recurrence_backward(xp, w, h, c, dh, layout)
+        bit_equal = bool(torch.equal(dxp, dxp2) and torch.equal(dw, dw2))
+        del dxp2, dw2
+        check(h_err <= K5_TOL and c_rel <= K5_TOL, f"K5 train-mode forward {name}: h err {h_err}, c rel {c_rel}")
+        check(finite and dxp_rel <= K5B_TOL and dw_rel <= K5B_TOL,
+              f"K5b {name} disagrees with its plain version: d(xp) {dxp_rel}, d(W_hh) {dw_rel} > {K5B_TOL}")
+        check(bit_equal, f"K5b {name}: two runs on the same inputs gave different bits")
+        ms = cuda_ms(lambda: lstm_recurrence_backward(xp, w, h, c, dh, layout), reps=10)
+        serve_ms = cuda_ms(lambda: lstm_recurrence(xp, w, layout), reps=10)
+        train_fwd_ms = cuda_ms(lambda: lstm_recurrence_with_cell(xp, w, layout), reps=10)
+        cudnn_fwd_ms, cudnn_bwd_ms = cudnn_lstm_backward_ms(layout, xp, w, dh)
+        # the function reads xp, h, c, dh and W_hh^T once and writes d(xp) and d(W_hh^T) once. Operations
+        # per (sequence, step): the gate recompute (4H x H multiply-adds), dh_rec (the same), d(W_hh) (the
+        # same), ~30 a unit for the cell
+        nbytes = (2 * layout.xp_size + 3 * layout.h_size + 2 * layout.w_size) * 4
+        ops = sum(4 * layout.dirs * layout.batch * n * (24 * hh * hh + 30 * hh)
+                  for hh, n in zip(layout.hidden, layout.frames))
+        bms, by = bound(nbytes, ops)
+        res[name] = dict(max_hidden=max(layout.hidden), max_steps=max(layout.frames), h_max_abs_err=h_err,
+                         c_rel_err=c_rel, dxp_max_abs_err=dxp_err, dxp_rel_err=dxp_rel, dw_rel_err=dw_rel,
+                         bit_equal_second_run=bit_equal, ms=ms, plain_ms=plain_ms, plain_forward_ms=fwd_plain_ms,
+                         forward_serve_ms=serve_ms, forward_train_ms=train_fwd_ms, bound_ms=bms, bound_by=by,
+                         gbytes=nbytes / 1e9,
+                         serial_floor_ms=max(layout.frames) * STEP_CHAIN_CYCLES_BACKWARD / (clock_mhz * 1e3),
+                         cudnn_forward_ms=cudnn_fwd_ms, cudnn_backward_ms=cudnn_bwd_ms)
+        del xp, w, dh, h, c, dxp, dw
+        torch.cuda.empty_cache()
+    phase("k5_backward", tol=K5B_TOL, batch=TRAIN_BATCH, slices=S2, step_chain_cycles=STEP_CHAIN_CYCLES_BACKWARD,
+          max_sm_clock_mhz=clock_mhz, **res)
+    off = res["offline"]
+    kernels["lstm_recurrence_backward"] = dict(
+        name="lstm_recurrence_backward", route="cuda", source="xumx_slicq_torch/csrc/lstm_recurrence.cu",
+        replaces="xumx_slicq_tpu/training.py:273", max_abs_err=off["dxp_max_abs_err"], ms=off["ms"],
+        plain_ms=off["plain_ms"], bound_ms=off["bound_ms"], bound_by=off["bound_by"],
+        library_ms=off["cudnn_backward_ms"])
 
 
 def main():
@@ -807,6 +952,14 @@ def main():
     train_steps(dev, slicqt, kernels)
     torch.cuda.empty_cache()
     trainer_cli(dev, clip)
+
+    # -- phases 18-21: training the LSTM variant, K5b ---------------------------
+    torch.cuda.empty_cache()
+    k5_backward(slicqt, g, kernels)
+    train_cuda_vs_cpu(dev, lstm=True)
+    train_steps(dev, slicqt, kernels, lstm=True)
+    torch.cuda.empty_cache()
+    trainer_cli(dev, clip, lstm=True)
 
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
              "bound_ms", "bound_by", "library_ms"]

@@ -11,14 +11,18 @@ same sums; only FMA contraction differs), and 1e-4 for K2 and its backward
 sums taken in another order). K5 (the LSTM recurrence) is held to 1e-4
 absolute on h, |h| < 1: accurate expf/tanhf against the CPU's sigmoid and
 tanh, and gate sums in another order, carried through thousands of steps
-of a contractive recurrence.
+of a contractive recurrence. K5b (its backward) is held to 1e-4 of the
+largest plain value on d(xp) and d(W_hh^T), from the same h and c: the
+same arithmetic in another order through up to 3,212 steps.
 """
 
 import pytest
 import torch
 
-from xumx_slicq_torch.kernels.lstm_recurrence import (RecurrenceLayout, lstm_recurrence,
-                                                      lstm_recurrence_grouped_plain, pack_recurrent_weights)
+from xumx_slicq_torch.kernels.lstm_recurrence import (RecurrenceLayout, lstm_recurrence, lstm_recurrence_backward,
+                                                      lstm_recurrence_backward_grouped_plain,
+                                                      lstm_recurrence_grouped_plain, lstm_recurrence_with_cell,
+                                                      pack_recurrent_weights)
 from xumx_slicq_torch.kernels.synth_assembly import (synth_assembly, synth_assembly_backward,
                                                      synth_assembly_backward_plain, synth_assembly_plain)
 from xumx_slicq_torch.kernels.wiener_em import (stability_scale, wiener_em, wiener_em_backward,
@@ -35,6 +39,7 @@ MEL12 = dict(scale="mel", fbins=12, fmin=200.0)
 K2_LAUNCHES = 3                                    # device launches per K2 call, any number of buckets
 TRAIN_LEN = 2 * 44100                             # the training layout: batch 32 of 2.0 s
 K5_TOL = 1e-4
+K5B_TOL = 1e-4
 
 
 @pytest.fixture
@@ -311,3 +316,54 @@ def test_lstm_unmix_on_card_matches_cpu(cuda, realtime):
         assert lstm_recurrence.launches == before + 3
         _, ref = cpu.apply([b.cpu() for b in X])
     assert max(float((a.cpu() - b).abs().max()) for a, b in zip(masks, ref)) <= 1e-5
+
+
+def _k5_train_case(cuda, realtime, seed):
+    """K5's training layout (batch 32 of 2 s at bark-262: up to 3,212 steps,
+    H up to 43 offline and 86 realtime) on the card, and a cotangent of h."""
+    layout, xp, w = _k5_inputs(SliCQT(device=cuda).block_shapes(32, 2, TRAIN_LEN), realtime, cuda, seed)
+    dh = torch.randn(layout.h_size, generator=torch.Generator(device=cuda).manual_seed(seed + 1), device=cuda)
+    return layout, xp, w, dh
+
+
+@pytest.mark.parametrize("realtime", [False, True], ids=["offline", "realtime"])
+def test_k5_train_forward_keeps_c(cuda, realtime):
+    """K5's train-mode forward writes h and the cell state c, both as the
+    grouped plain walk on the card gives them, in one launch."""
+    layout, xp, w, _ = _k5_train_case(cuda, realtime, seed=17)
+    assert max(layout.frames) == 3212
+    before = lstm_recurrence.launches
+    h, c = lstm_recurrence_with_cell(xp, w, layout)
+    torch.cuda.synchronize()
+    assert lstm_recurrence.launches == before + 1
+    h_ref, c_ref = lstm_recurrence_grouped_plain(xp, w, layout, cell=True)
+    assert torch.isfinite(c).all()
+    assert float((h - h_ref).abs().max()) <= K5_TOL
+    assert _rel(c, c_ref) <= K5_TOL
+
+
+@pytest.mark.parametrize("realtime", [False, True], ids=["offline", "realtime"])
+def test_k5b_matches_plain(cuda, realtime):
+    """K5b through the autograd Function (one launch a layer) against the
+    grouped plain reverse walk on the card, from the same h and c."""
+    layout, xp, w, dh = _k5_train_case(cuda, realtime, seed=19)
+    xr, wr = xp.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    before = lstm_recurrence_backward.launches
+    dxp, dw = torch.autograd.grad(lstm_recurrence(xr, wr, layout), (xr, wr), dh)
+    torch.cuda.synchronize()
+    assert lstm_recurrence_backward.launches == before + 1
+    h, c = lstm_recurrence_with_cell(xp, w, layout)
+    dxp_ref, dw_ref = lstm_recurrence_backward_grouped_plain(xp, w, h, c, dh, layout)
+    assert torch.isfinite(dxp).all() and torch.isfinite(dw).all()
+    assert _rel(dxp, dxp_ref) <= K5B_TOL
+    assert _rel(dw, dw_ref) <= K5B_TOL
+
+
+def test_k5b_weight_gradient_is_bit_equal_over_runs(cuda):
+    """No float atomics: two backward calls on the same inputs give the same bits."""
+    layout, xp, w, dh = _k5_train_case(cuda, False, seed=21)
+    h, c = lstm_recurrence_with_cell(xp, w, layout)
+    dxp1, dw1 = lstm_recurrence_backward(xp, w, h, c, dh, layout)
+    dxp2, dw2 = lstm_recurrence_backward(xp, w, h, c, dh, layout)
+    torch.cuda.synchronize()
+    assert torch.equal(dxp1, dxp2) and torch.equal(dw1, dw2)

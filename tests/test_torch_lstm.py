@@ -133,7 +133,7 @@ def test_sliced_lstm_matches_jax(sliced_refs, shape, realtime):
     blk.load_state_dict({k.removeprefix("blocks.0."): v for k, v in sd.items()})
     out = blk(torch.from_numpy(x))
     assert out.shape == (4, B, C, F, S, T)
-    np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=ATOL)
+    np.testing.assert_allclose(out.detach().numpy(), ref, rtol=0, atol=ATOL)
 
 
 def test_grouped_recurrence_matches_per_bucket():
@@ -236,18 +236,21 @@ def test_parameter_counts_match_jax_at_bark262():
         assert Unmix(shapes, realtime=realtime, lstm=True, device=DEVICE).num_params() == expected
 
 
-def test_lstm_serves_only():
-    """Train mode raises (LSTM training is the next slice), as do amp and
-    BatchNorm folding (the LSTM's BatchNorm stays unfolded)."""
-    shapes = [(1, 2, 3, 2, 4)]
+def test_lstm_trains_and_keeps_batchnorm_unfolded():
+    """BatchNorm folding still raises (the LSTM's BatchNorm stays unfolded,
+    unmix.py:171-172); train mode and amp now build and run, and a
+    backward reaches every parameter."""
+    shapes = [(1, 2, 3, 2, 4), (1, 2, 17, 2, 4)]
     model = Unmix(shapes, lstm=True, device=DEVICE)
     with pytest.raises(ValueError):
         model.fold_batchnorm()
-    with pytest.raises(NotImplementedError):
-        Unmix(shapes, lstm=True, amp=True, device=DEVICE)
-    model.train()
-    with pytest.raises(NotImplementedError):
-        model.apply([torch.ones(shapes[0], dtype=torch.complex64)])
+    X = [torch.from_numpy(noise(i, s) + 1j * noise(i + 9, s)) for i, s in enumerate(shapes)]
+    for amp in (False, True):
+        model = Unmix(shapes, lstm=True, amp=amp, device=DEVICE).train()
+        _, masks = model.apply(X, generator=torch.Generator().manual_seed(0))
+        sum(m.sum() for m in masks).backward()
+        assert all(p.grad is not None and torch.isfinite(p.grad).all() for p in model.parameters())
+        assert all(m.dtype == torch.float32 for m in masks)
 
 
 @pytest.fixture(scope="module")

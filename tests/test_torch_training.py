@@ -31,7 +31,7 @@ import optax
 import torch
 from scipy.io import wavfile
 
-from torch_port_utils import DEVICE, MEL12, TINY_LEN, noise
+from torch_port_utils import DEVICE, MEL12, TINY_LEN, keep_grads, noise, norm_rel
 
 from xumx_slicq_tpu import data as jdata
 from xumx_slicq_tpu import loss as jloss
@@ -57,12 +57,6 @@ def _batch(seed=0):
     stems = noise(seed, (BATCH, 4, 2, TINY_LEN), 0.1)
     stems[0, 1] = 0.0
     return np.concatenate([stems.sum(1, keepdims=True), stems], axis=1)
-
-
-def _keep_grads():
-    """An optax link that passes the updates on and keeps them as its state."""
-    return optax.GradientTransformation(lambda p: jax.tree.map(jnp.zeros_like, p),
-                                        lambda u, state, params=None: (u, u))
 
 
 @pytest.fixture(scope="module")
@@ -101,11 +95,6 @@ def _port_step(shapes, weights, batch, realtime=False, sdr_mcoef=-1.0, amp=False
     return dict(loss=loss, grads={n: p.grad for n, p in model.named_parameters()}, after=model.state_dict())
 
 
-def _norm_rel(a, b, floor=0.0) -> float:
-    a, b = torch.as_tensor(a).double(), torch.as_tensor(b).double()
-    return float(torch.linalg.vector_norm(a - b) / max(float(torch.linalg.vector_norm(b)), floor))
-
-
 @pytest.mark.parametrize("realtime,sdr_mcoef", [(False, 0.1), (True, -1.0)], ids=["offline-sdsdr", "realtime"])
 def test_train_step_matches_jax(weights, realtime, sdr_mcoef):
     """One step, offline with every loss term (complex MSE, mask sum and
@@ -117,7 +106,7 @@ def test_train_step_matches_jax(weights, realtime, sdr_mcoef):
     j = JaxSliCQT(**MEL12)
     shapes, params, stats = weights
     ju = JaxUnmix(shapes, realtime=realtime)
-    opt = optax.chain(_keep_grads(), optax.adamw(LR, weight_decay=WD))
+    opt = optax.chain(keep_grads(), optax.adamw(LR, weight_decay=WD))
     jstep, _ = jax_make_train_step(j, ju, opt, sdr_mcoef=sdr_mcoef)
     before = params_from_jax(params, stats)
     p1, s1, o1, jloss = jstep(params, stats, opt.init(params), jnp.asarray(batch))
@@ -130,12 +119,12 @@ def test_train_step_matches_jax(weights, realtime, sdr_mcoef):
     floor = 1e-3 * max(norms.values())
     for name, g in out["grads"].items():
         assert g is not None and torch.isfinite(g).all(), name
-        assert _norm_rel(g, grads[name], floor) <= 1e-4, name
+        assert norm_rel(g, grads[name], floor) <= 1e-4, name
     for name, a in out["after"].items():
         if "running_" in name:
             assert float((a - after[name]).abs().max()) <= 1e-6 * max(1.0, float(after[name].abs().max())), name
         elif name in norms and norms[name] >= floor:
-            assert _norm_rel(a - before[name], after[name] - before[name]) <= 1e-3, name
+            assert norm_rel(a - before[name], after[name] - before[name]) <= 1e-3, name
         elif name in norms:             # Adam's first step follows the sign of rounding noise: at most lr
             assert float((a - before[name]).abs().max()) <= LR * (1.01 + WD * float(a.abs().max())), name
 
@@ -258,7 +247,7 @@ def test_trained_dir_loads_in_both_packages(trained_dir):
     np.testing.assert_allclose(ours, ref, rtol=0, atol=1e-5)
 
 
-@pytest.mark.parametrize("flag", [["--lstm"], ["--n-devices", "2"], ["--tp", "2"]])
+@pytest.mark.parametrize("flag", [["--n-devices", "2"], ["--tp", "2"]])
 def test_unported_flags_raise(tmp_path, flag):
     with pytest.raises(NotImplementedError):
         training_main(TRAIN_ARGS + ["--model-path", str(tmp_path), "--epochs", "1"] + flag)

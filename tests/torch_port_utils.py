@@ -47,3 +47,20 @@ def blocks_rel_err(xs, ys) -> float:
     """Worst rel_err over two lists of blocks."""
     assert len(xs) == len(ys)
     return max(rel_err(x, y) for x, y in zip(xs, ys))
+
+
+def norm_rel(a, b, floor: float = 0.0) -> float:
+    """||a - b|| / max(||b||, floor), in float64."""
+    a, b = torch.as_tensor(a).double(), torch.as_tensor(b).double()
+    return float(torch.linalg.vector_norm(a - b) / max(float(torch.linalg.vector_norm(b)), floor))
+
+
+def keep_grads():
+    """An optax link that passes the updates on and keeps them as its state:
+    chained before AdamW, one JAX train step also returns its gradients."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+
+    return optax.GradientTransformation(lambda p: jax.tree.map(jnp.zeros_like, p),
+                                        lambda u, state, params=None: (u, u))

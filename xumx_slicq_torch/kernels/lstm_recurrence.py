@@ -29,6 +29,20 @@ together. The wrapper `lstm_recurrence` runs that for CPU tensors and
 launches the CUDA kernel
 (csrc/lstm_recurrence.cu, one launch per layer for all buckets) for CUDA
 tensors; `lstm_recurrence.launches` counts those launches.
+
+Training (the JAX package differentiates through the scan,
+xumx_slicq_tpu/training.py:273-274): when xp or W_hh^T needs a gradient,
+`lstm_recurrence` is an autograd Function. Its forward also writes the
+cell state c, packed like h; its backward is K5b, `lstm_recurrence_backward`
+(a second entry point of the same .cu, one launch a layer, counted in
+`lstm_recurrence_backward.launches`): the reverse walk of every sequence,
+which recomputes the gates from xp and the saved h and writes d(xp), then
+sums that sequence's d(W_hh^T) = sum over steps of h_prev (x) d(xp) into
+its row of a buffer of partials, which one reduction sums over the
+sequence rows in a fixed order. No float atomics: two runs give bit-equal
+gradients. `lstm_recurrence_backward_plain` is the
+closed-form reverse walk of one bucket, `lstm_recurrence_backward_grouped_plain`
+the same over a layout (the CPU's version of K5b, and its reference).
 """
 
 import ctypes
@@ -98,26 +112,66 @@ def _offsets(sizes):
 
 def pack_recurrent_weights(w_hh: Sequence[torch.Tensor]) -> torch.Tensor:
     """Every bucket's W_hh, (4, dirs, 4H, H) each, as one packed buffer of
-    W_hh^T in the layout's w order: the read-only table K5 walks."""
-    return torch.cat([w.detach().transpose(-1, -2).contiguous().reshape(-1) for w in w_hh])
+    W_hh^T in the layout's w order: the table K5 walks. Differentiable, so
+    that the gradient of the packed buffer reaches each W_hh; build it
+    under torch.no_grad() for a detached serving copy."""
+    return torch.cat([w.transpose(-1, -2).contiguous().reshape(-1) for w in w_hh])
 
 
-def _walk(walk: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
+def _walk(walk: torch.Tensor, w_hh: torch.Tensor, cell: bool = False):
     """The steps of lstm.py:152-160 over sequences in walk order: walk
-    (n, dirs, steps, B, 4H), w_hh (n, dirs, 4H, H) -> h (n, dirs, steps, B, H)."""
+    (n, dirs, steps, B, 4H), w_hh (n, dirs, 4H, H) -> h (n, dirs, steps, B, H),
+    and with `cell` also c of the same shape."""
     n, dirs, _, B, G = walk.shape
     H = G // 4
     w_t = w_hh.transpose(-1, -2)                                       # (n, dirs, H, 4H)
     h = walk.new_zeros((n, dirs, B, H))
     c = walk.new_zeros((n, dirs, B, H))
-    steps = []
+    steps, cells = [], []
     for xt in walk.unbind(2):
         gates = xt + torch.matmul(h, w_t)
         sig = torch.sigmoid(gates)                   # i, f and o; g's slot is unused (fewer ops a step)
         c = torch.addcmul(sig[..., H:2 * H] * c, sig[..., :H], torch.tanh(gates[..., 2 * H:3 * H]))
         h = sig[..., 3 * H:] * torch.tanh(c)
         steps.append(h)
+        cells.append(c)
+    if cell:
+        return torch.stack(steps, dim=2), torch.stack(cells, dim=2)
     return torch.stack(steps, dim=2)
+
+
+def _walk_backward(walk, w_hh, hs, cs, dhs):
+    """The reverse of _walk, in closed form: walk (n, dirs, steps, B, 4H)
+    projections, w_hh (n, dirs, 4H, H), and the forward's h, c and the
+    cotangent dh (n, dirs, steps, B, H), all in walk order. The gates are
+    recomputed from xp and h_prev for all steps at once (they depend only
+    on saved values); then per step, from the last: dh = dh_out + dh_rec,
+    dc = dc_rec + dh o (1 - tanh(c)^2); d(xp) = (dc g i(1-i), dc c_prev
+    f(1-f), dc i (1-g^2), dh tanh(c) o(1-o)); dh_rec = W_hh^T d(xp),
+    dc_rec = dc f. Last, dW_hh = sum over steps and rows of d(xp)^T h_prev.
+    Returns (d walk, dW_hh)."""
+    n, dirs, steps, B, G = walk.shape
+    H = G // 4
+    first = walk.new_zeros((n, dirs, 1, B, H))
+    h_prev = torch.cat([first, hs[:, :, :-1]], dim=2)
+    c_prev = torch.cat([first, cs[:, :, :-1]], dim=2)
+    gates = walk + torch.matmul(h_prev, w_hh.transpose(-1, -2).unsqueeze(2))
+    i, f, o = (torch.sigmoid(gates[..., k * H:(k + 1) * H]) for k in (0, 1, 3))
+    g = torch.tanh(gates[..., 2 * H:3 * H])
+    tc = torch.tanh(cs)
+    dc_dh = o * (1 - tc * tc)
+    scale = torch.cat([g * i * (1 - i), c_prev * f * (1 - f), i * (1 - g * g), tc * o * (1 - o)], dim=-1)
+    out = torch.empty_like(walk)
+    dh_rec = dc_rec = walk.new_zeros((n, dirs, B, H))
+    for u in range(steps - 1, -1, -1):
+        dh = dhs[:, :, u] + dh_rec
+        dc = torch.addcmul(dc_rec, dh, dc_dh[:, :, u])
+        dgates = torch.cat([dc, dc, dc, dh], dim=-1).mul_(scale[:, :, u])
+        out[:, :, u] = dgates
+        dh_rec = torch.matmul(dgates, w_hh)
+        dc_rec = dc * f[:, :, u]
+    dw = torch.matmul(out.reshape(n, dirs, steps * B, G).transpose(-1, -2), h_prev.reshape(n, dirs, steps * B, H))
+    return out, dw
 
 
 def _walk_order(xp: torch.Tensor) -> torch.Tensor:
@@ -136,6 +190,13 @@ def _positions(hs: torch.Tensor, frames: int) -> torch.Tensor:
     return hs.permute(0, 2, 3, 1, 4).reshape(n, frames, B, dirs * H)
 
 
+def _walk_of(hs: torch.Tensor, dirs: int) -> torch.Tensor:
+    """The inverse of _positions: (n, frames, B, dirs H) -> (n, dirs,
+    frames, B, H) in walk order."""
+    n, frames, B, _ = hs.shape
+    return _walk_order(hs.view(n, frames, B, dirs, -1).permute(0, 3, 1, 2, 4))
+
+
 def lstm_recurrence_plain(xp: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
     """One layer of one bucket in plain PyTorch, every target and direction
     at once, one loop iteration per step (lstm.py:145-164).
@@ -147,30 +208,85 @@ def lstm_recurrence_plain(xp: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
     return _positions(_walk(_walk_order(xp), w_hh), xp.shape[2])
 
 
-def lstm_recurrence_grouped_plain(xp: torch.Tensor, w: torch.Tensor, layout: RecurrenceLayout) -> torch.Tensor:
+def _hidden_groups(layout: RecurrenceLayout):
+    """(H, the buckets of that H, their longest length) for each hidden size."""
+    for H in sorted(set(layout.hidden)):
+        ks = [k for k, h in enumerate(layout.hidden) if h == H]
+        yield H, ks, max(layout.frames[k] for k in ks)
+
+
+def _pad_walk(a: torch.Tensor, steps: int) -> torch.Tensor:
+    """(n, dirs, frames, B, X) padded with zeros at the end of the walk to `steps`."""
+    return torch.nn.functional.pad(a, (0, 0, 0, 0, 0, steps - a.shape[2]))
+
+
+def lstm_recurrence_grouped_plain(xp: torch.Tensor, w: torch.Tensor, layout: RecurrenceLayout, cell: bool = False):
     """lstm_recurrence_plain over every bucket of a packed layout, with the
     buckets of one hidden size walked together (shorter sequences padded
     at the end of their walk, whose extra steps are dropped): the CPU's
     version of K5's one launch, far fewer Python steps than bucket by
-    bucket. Returns the packed h."""
-    out = torch.empty(layout.h_size, dtype=xp.dtype, device=xp.device)
-    xs, ws, hs = layout.xp_blocks(xp), layout.w_blocks(w), layout.h_blocks(out)
-    for H in sorted(set(layout.hidden)):
-        ks = [k for k, h in enumerate(layout.hidden) if h == H]
-        steps = max(layout.frames[k] for k in ks)
-        walk = torch.cat([torch.nn.functional.pad(_walk_order(xs[k]), (0, 0, 0, 0, 0, steps - layout.frames[k]))
-                          for k in ks])
-        h = _walk(walk, torch.cat([ws[k].transpose(-1, -2) for k in ks]))
+    bucket. Returns the packed h, and with `cell` (h, c), c packed like h.
+    Differentiable (the buckets are packed by concatenation)."""
+    xs, ws = layout.xp_blocks(xp), layout.w_blocks(w)
+    hs, cs = [None] * len(layout.hidden), [None] * len(layout.hidden)
+    for H, ks, steps in _hidden_groups(layout):
+        walk = torch.cat([_pad_walk(_walk_order(xs[k]), steps) for k in ks])
+        res = _walk(walk, torch.cat([ws[k].transpose(-1, -2) for k in ks]), cell)
+        h, c = res if cell else (res, None)
         for i, k in enumerate(ks):
-            hs[k].copy_(_positions(h[NB_TARGETS * i: NB_TARGETS * (i + 1)], layout.frames[k]))
-    return out
+            part = slice(NB_TARGETS * i, NB_TARGETS * (i + 1))
+            hs[k] = _positions(h[part], layout.frames[k]).reshape(-1)
+            if cell:
+                cs[k] = _positions(c[part], layout.frames[k]).reshape(-1)
+    return (torch.cat(hs), torch.cat(cs)) if cell else torch.cat(hs)
+
+
+def lstm_recurrence_backward_plain(xp: torch.Tensor, w_hh: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
+                                   dh: torch.Tensor):
+    """The backward of lstm_recurrence_plain for one bucket, the closed-form
+    reverse walk of every sequence (_walk_backward).
+
+    xp: (4, dirs, frames, B, 4H); w_hh: (4, dirs, 4H, H); h and c (the
+    forward's) and the cotangent dh: (4, frames, B, dirs * H). Returns
+    d(xp) (4, dirs, frames, B, 4H) and d(W_hh) (4, dirs, 4H, H)."""
+    dirs = xp.shape[1]
+    dwalk, dw = _walk_backward(_walk_order(xp), w_hh, _walk_of(h, dirs), _walk_of(c, dirs), _walk_of(dh, dirs))
+    return _walk_order(dwalk), dw
+
+
+def lstm_recurrence_backward_grouped_plain(xp: torch.Tensor, w: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
+                                           dh: torch.Tensor, layout: RecurrenceLayout):
+    """lstm_recurrence_backward_plain over every bucket of a packed layout,
+    the buckets of one hidden size walked together (padded at the end of
+    the walk, where the zero cotangent keeps every padded step's gradient
+    zero): the CPU's version of K5b and its reference on the card.
+
+    All arguments packed (w: W_hh^T from pack_recurrent_weights; h, c, dh
+    like the forward's h). Returns (d(xp), d(w)), packed like xp and w."""
+    dxp, dw = torch.empty_like(xp), torch.empty_like(w)
+    xs, ws, dxs, dws = layout.xp_blocks(xp), layout.w_blocks(w), layout.xp_blocks(dxp), layout.w_blocks(dw)
+    hs, cs, dhs = layout.h_blocks(h), layout.h_blocks(c), layout.h_blocks(dh)
+    dirs = layout.dirs
+    for H, ks, steps in _hidden_groups(layout):
+        def walked(blocks):
+            return torch.cat([_pad_walk(_walk_of(blocks[k], dirs), steps) for k in ks])
+
+        walk = torch.cat([_pad_walk(_walk_order(xs[k]), steps) for k in ks])
+        dwalk, dW = _walk_backward(walk, torch.cat([ws[k].transpose(-1, -2) for k in ks]),
+                                   walked(hs), walked(cs), walked(dhs))
+        for i, k in enumerate(ks):
+            part = slice(NB_TARGETS * i, NB_TARGETS * (i + 1))
+            dxs[k].copy_(_walk_order(dwalk[part, :, :layout.frames[k]]))
+            dws[k].copy_(dW[part].transpose(-1, -2))
+    return dxp, dw
 
 
 def work_items(layout: RecurrenceLayout) -> np.ndarray:
-    """K5's work table: one row of ITEM_FIELDS int64 per block. A bucket
-    with H <= GROUP_H runs a group of lanes per sequence (the power of two
-    >= H), THREADS / group sequences a block; a larger one a block per
-    sequence. Sequence q of a bucket is (t, d, b) with q = (t dirs + d) B + b."""
+    """K5's (and K5b's) work table: one row of ITEM_FIELDS int64 per block.
+    A bucket with H <= GROUP_H runs a group of lanes per sequence (the
+    power of two >= H), THREADS / group sequences a block; a larger one a
+    block per sequence. Sequence q of a bucket is (t, d, b) with
+    q = (t dirs + d) B + b."""
     rows = []
     for k, (H, frames) in enumerate(zip(layout.hidden, layout.frames)):
         base = [H, frames, layout.batch, layout.dirs, layout.xp_offsets[k], layout.h_offsets[k], layout.w_offsets[k]]
@@ -200,27 +316,99 @@ def _check(xp: torch.Tensor, w: torch.Tensor, layout: RecurrenceLayout):
         raise ValueError(f"lstm_recurrence: dirs must be 1 or 2 and H <= {MAX_H}")
 
 
+def _forward(xp: torch.Tensor, w: torch.Tensor, layout: RecurrenceLayout, cell: bool = False):
+    """K5 on checked tensors: (h, c) with c packed like h when `cell`, else (h, None)."""
+    if xp.device.type == "cpu":
+        res = lstm_recurrence_grouped_plain(xp, w, layout, cell)
+        return res if cell else (res, None)
+    out = torch.empty(layout.h_size, dtype=torch.float32, device=xp.device)
+    c = torch.empty_like(out) if cell else None
+    items = _device_items(layout, xp.device)
+    fn = build.function("lstm_recurrence", "lstm_recurrence", (
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_void_p))
+    stream = torch.cuda.current_stream(xp.device).cuda_stream
+    rc = fn(xp.data_ptr(), w.data_ptr(), out.data_ptr(), c.data_ptr() if cell else None, items.data_ptr(),
+            items.shape[0], stream)
+    if rc != 0:
+        raise RuntimeError(f"lstm_recurrence: kernel launch failed with cudaError {rc}")
+    lstm_recurrence.launches += 1
+    return out, c
+
+
+def lstm_recurrence_backward(xp: torch.Tensor, w: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
+                             dh: torch.Tensor, layout: RecurrenceLayout):
+    """The backward of one `lstm_recurrence` layer: K5b on CUDA tensors (one
+    launch, counted in `lstm_recurrence_backward.launches`, for d(xp) and
+    each sequence row's d(w), then their sum over rows),
+    `lstm_recurrence_backward_grouped_plain` on CPU tensors.
+
+    xp, w: the forward's packed inputs; h, c: its packed output and cell
+    state; dh: the packed cotangent of h. Returns (d(xp), d(w)), packed."""
+    _check(xp, w, layout)
+    for name, t in (("h", h), ("c", c), ("dh", dh)):
+        if t.dtype != torch.float32 or t.shape != (layout.h_size,) or not t.is_contiguous() or t.device != xp.device:
+            raise ValueError(f"lstm_recurrence_backward: {name} must be contiguous float32 ({layout.h_size},) "
+                             f"on {xp.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if xp.device.type == "cpu":
+        return lstm_recurrence_backward_grouped_plain(xp, w, h, c, dh, layout)
+    dxp = torch.empty_like(xp)
+    partials = torch.empty((layout.batch, layout.w_size), dtype=torch.float32, device=xp.device)
+    items = _device_items(layout, xp.device)
+    fn = build.function("lstm_recurrence", "lstm_recurrence_backward", (
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p))
+    stream = torch.cuda.current_stream(xp.device).cuda_stream
+    rc = fn(xp.data_ptr(), w.data_ptr(), h.data_ptr(), c.data_ptr(), dh.data_ptr(), dxp.data_ptr(),
+            partials.data_ptr(), layout.w_size, items.data_ptr(), items.shape[0], stream)
+    if rc != 0:
+        raise RuntimeError(f"lstm_recurrence_backward: kernel launch failed with cudaError {rc}")
+    lstm_recurrence_backward.launches += 1
+    return dxp, partials.sum(0)
+
+
+lstm_recurrence_backward.launches = 0
+
+
+def lstm_recurrence_with_cell(xp: torch.Tensor, w: torch.Tensor, layout: RecurrenceLayout):
+    """K5's train-mode forward, not differentiable: (h, c), c packed like h,
+    what the autograd Function keeps for K5b. One launch, counted in
+    `lstm_recurrence.launches`; the grouped plain version on CPU tensors."""
+    _check(xp, w, layout)
+    return _forward(xp, w, layout, cell=True)
+
+
+class _Recurrence(torch.autograd.Function):
+    """K5 with K5b as its backward: the forward keeps c beside h."""
+
+    @staticmethod
+    def forward(ctx, xp, w, layout):
+        h, c = _forward(xp, w, layout, cell=True)
+        ctx.layout = layout
+        ctx.save_for_backward(xp, w, h, c)
+        return h
+
+    @staticmethod
+    def backward(ctx, dh):
+        xp, w, h, c = ctx.saved_tensors
+        dxp, dw = lstm_recurrence_backward(xp, w, h, c, dh.contiguous(), ctx.layout)
+        return dxp, dw, None
+
+
 def lstm_recurrence(xp: torch.Tensor, w: torch.Tensor, layout: RecurrenceLayout) -> torch.Tensor:
     """One LSTM layer over every bucket, target and direction of `layout`:
     K5 on CUDA tensors (one launch, counted in `lstm_recurrence.launches`),
-    `lstm_recurrence_grouped_plain` on CPU tensors.
+    `lstm_recurrence_grouped_plain` on CPU tensors. Differentiable when xp
+    or w needs a gradient (the forward then also keeps c; the backward is
+    `lstm_recurrence_backward`).
 
     xp: packed projections (layout.xp_size,) float32; w: packed W_hh^T
     (layout.w_size,) from pack_recurrent_weights. Returns the packed h
     (layout.h_size,) float32 (`layout.h_blocks` views it per bucket)."""
     _check(xp, w, layout)
-    if xp.device.type == "cpu":
-        return lstm_recurrence_grouped_plain(xp, w, layout)
-    out = torch.empty(layout.h_size, dtype=torch.float32, device=xp.device)
-    items = _device_items(layout, xp.device)
-    fn = build.function("lstm_recurrence", "lstm_recurrence", (
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p))
-    stream = torch.cuda.current_stream(xp.device).cuda_stream
-    rc = fn(xp.data_ptr(), w.data_ptr(), out.data_ptr(), items.data_ptr(), items.shape[0], stream)
-    if rc != 0:
-        raise RuntimeError(f"lstm_recurrence: kernel launch failed with cudaError {rc}")
-    lstm_recurrence.launches += 1
-    return out
+    if torch.is_grad_enabled() and (xp.requires_grad or w.requires_grad):
+        return _Recurrence.apply(xp, w, layout)
+    return _forward(xp, w, layout)[0]
 
 
 lstm_recurrence.launches = 0

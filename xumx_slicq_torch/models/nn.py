@@ -37,9 +37,22 @@ def batch_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 
 
 def batch_norm1d(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
-                 mean: torch.Tensor, var: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """Eval BatchNorm1d over the last axis (features), in the JAX
-    package's order of operations (lstm.py:127-142)."""
+                 mean: torch.Tensor, var: torch.Tensor, eps: float = 1e-5,
+                 train: bool = False, momentum: float = 0.1) -> torch.Tensor:
+    """BatchNorm1d over the last axis (features) of x (..., rows, features),
+    statistics over the rows, in the JAX package's order of operations
+    (lstm.py:127-142). Eval: the running statistics. Train: the batch's
+    mean and biased variance, and the running buffers `mean` and `var`
+    (broadcastable views of x's statistics) updated in place with the
+    unbiased variance n / max(n - 1, 1) at `momentum`."""
+    if train:
+        n = x.shape[-2]
+        batch_mean = x.mean(dim=-2, keepdim=True)
+        batch_var = x.var(dim=-2, unbiased=False, keepdim=True)
+        with torch.no_grad():
+            mean.copy_((1 - momentum) * mean + momentum * batch_mean)
+            var.copy_((1 - momentum) * var + momentum * (batch_var * (n / max(n - 1, 1))))
+        mean, var = batch_mean, batch_var
     return (x - mean) * torch.rsqrt(var + eps) * scale + bias
 
 

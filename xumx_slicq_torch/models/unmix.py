@@ -5,11 +5,12 @@ lstm=True, one SlicedLSTM) per bucket, the sigmoid masks multiplied into
 the mixture magnitude, then the embedded Wiener-EM (offline) or mix-phase
 (realtime) reconstruction (model.py:263-269). The model is built in eval
 mode, where BatchNorm runs from its running statistics or folded into the
-convs; the trainer calls `.train()` on the CDAE model, where BatchNorm runs
-on batch statistics and updates its running buffers (unmix.py:121-165), and
-gradients flow through K2's backward kernel to the masks. The LSTM model
-serves only (eval mode): its buckets' recurrences run together, one K5
-launch per layer (models/lstm.py).
+convs; the trainer calls `.train()`, where BatchNorm runs on batch
+statistics and updates its running buffers (unmix.py:121-165), and
+gradients flow through K2's backward kernel to the masks. The LSTM
+model's buckets' recurrences run together, one K5 launch per layer, and
+in training one K5b launch per layer backward (models/lstm.py); its
+inter-layer dropout draws from the generator given to `forward`.
 """
 
 from typing import List, Optional, Sequence, Tuple
@@ -45,20 +46,19 @@ class Unmix(nn.Module):
         seed: int = 0,
         device="cuda",
     ):
-        """amp: bf16 conv operands with float32 results (`nn.amp_op`), the
-        JAX package's mixed-precision training (unmix.py:44-48); CDAE only.
+        """amp: bf16 operands with float32 results (`nn.amp_op`), the JAX
+        package's mixed-precision training (unmix.py:44-48): the CDAE's
+        convs, or the LSTM's projections and Linear layers.
         lstm: SlicedLSTM blocks (unmix.py:65-78); the hidden sizes and time
         filter are the CDAE's and do not apply."""
         super().__init__()
         dev = resolve_device(device)
-        if lstm and amp:
-            raise NotImplementedError("LSTM training (amp): next slice of the port")
         self.realtime = realtime
         self.lstm = lstm
         self.amp = amp
         self.wiener_iterations = wiener_iterations
         if lstm:
-            blocks = [SlicedLSTM(C, F, T, realtime=realtime) for (_, C, F, _, T) in block_shapes]
+            blocks = [SlicedLSTM(C, F, T, realtime=realtime, amp=amp) for (_, C, F, _, T) in block_shapes]
         else:
             blocks = [SlicedCDAE(C, F, T, hidden_size_1, hidden_size_2, time_filter_2, realtime=realtime, amp=amp)
                       for (_, C, F, _, T) in block_shapes]
@@ -89,10 +89,12 @@ class Unmix(nn.Module):
         with torch.no_grad():
             return recurrent_weights(self.blocks) if self.lstm else self.fold_batchnorm()
 
-    def magnitudes(self, Xcomplex: Sequence[torch.Tensor], prepared: Optional[list] = None):
+    def magnitudes(self, Xcomplex: Sequence[torch.Tensor], prepared: Optional[list] = None,
+                   generator: Optional[torch.Generator] = None):
         """The masks and the target magnitude estimates masks * |X|.
         prepared: `inference_weights()`, or None to run from the modules'
-        own weights.
+        own weights. generator: the LSTM's dropout draws in train mode
+        (None: no dropout, as the JAX package's rng=None).
 
         Returns (Ymags, Ymasks): Ymags is a `PackedBlocks` of
         (4, B, C, F, S, T) views of one float32 buffer, in the layout of
@@ -100,7 +102,7 @@ class Unmix(nn.Module):
         layout = layout_of(Xcomplex)
         Xmags = [torch.abs(x) for x in Xcomplex]
         if self.lstm:
-            Ymasks = lstm_masks(self.blocks, Xmags, prepared)
+            Ymasks = lstm_masks(self.blocks, Xmags, prepared, generator)
         else:
             Ymasks = [blk(xm, None if prepared is None else prepared[i])
                       for i, (blk, xm) in enumerate(zip(self.blocks, Xmags))]
@@ -113,21 +115,24 @@ class Unmix(nn.Module):
             torch.mul(m, xm[None], out=dst)           # multiplicative skip connection
         return Ymags, Ymasks
 
-    def forward(self, Xcomplex: Sequence[torch.Tensor], prepared: Optional[list] = None):
-        """Xcomplex: list of (B, C, F, S, T) complex mixture blocks.
+    def forward(self, Xcomplex: Sequence[torch.Tensor], prepared: Optional[list] = None,
+                generator: Optional[torch.Generator] = None):
+        """Xcomplex: list of (B, C, F, S, T) complex mixture blocks;
+        generator: the LSTM's dropout draws in train mode (see magnitudes).
         Returns (Ycomplex, Ymasks): lists of (4, B, C, F, S, T) complex
         estimates and float masks, as the JAX package's Unmix.apply."""
-        Ymags, Ymasks = self.magnitudes(Xcomplex, prepared)
+        Ymags, Ymasks = self.magnitudes(Xcomplex, prepared, generator)
         if self.realtime:
             Ycomplex = wiener_ops.phasemix_blocks(Xcomplex, Ymags)
         else:
             Ycomplex = wiener_ops.wiener_blocks(Xcomplex, Ymags, self.wiener_iterations)
         return Ycomplex, Ymasks
 
-    def apply(self, Xcomplex: Sequence[torch.Tensor], prepared: Optional[list] = None):
+    def apply(self, Xcomplex: Sequence[torch.Tensor], prepared: Optional[list] = None,
+              generator: Optional[torch.Generator] = None):
         """The JAX package's name for the forward pass. It shadows
         nn.Module.apply(fn); walk submodules with `modules()` instead."""
-        return self(Xcomplex, prepared)
+        return self(Xcomplex, prepared, generator)
 
     def num_params(self) -> int:
         return sum(p.numel() for p in self.parameters())

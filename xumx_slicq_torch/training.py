@@ -7,8 +7,10 @@ mixture and the four targets, runs `Unmix` in train mode (BatchNorm on
 batch statistics), Wiener-EM through kernel K2, the 14-combination complex
 MSE plus the mask-sum prior and, with --sdr-mcoef > 0, SD-SDR on the
 inverse transform through kernel K1; then the backward (K2's and K1's
-backward kernels, cuDNN) and one AdamW step. The JAX package's
-ReduceLROnPlateau mirrors torch's, so the port uses torch's.
+backward kernels, cuDNN) and one AdamW step. With --lstm the mask model
+is the LSTM variant: its recurrence runs through K5 and, backward, K5b,
+with inter-layer dropout drawn from a generator reseeded every step. The
+JAX package's ReduceLROnPlateau mirrors torch's, so the port uses torch's.
 
 Outputs in --model-path, as the JAX trainer writes them: the manifest
 `xumx_slicq_tpu.json` (same schema), the best weights `xumx_slicq_tpu.pth`
@@ -147,23 +149,25 @@ def make_train_step(slicqt: SliCQT, model: Unmix, optimizer, sdr_mcoef: float = 
     """The train and valid steps (xumx_slicq_tpu/training.py:236-301).
 
     batch: (B, 5, C, L) float32 on the model's device, stacked (mix, bass,
-    vocals, other, drums). train_step(batch) runs one forward, backward and
-    optimizer step in train mode and returns the loss as a 0-dim tensor
-    (no host sync). valid_step(batch) scores in eval mode: the training
+    vocals, other, drums). train_step(batch, generator=None) runs one
+    forward, backward and optimizer step in train mode and returns the loss
+    as a 0-dim tensor (no host sync); `generator` draws the LSTM's dropout
+    (None: no dropout, as the JAX step's rng=None). valid_step(batch)
+    scores in eval mode: the training
     criterion, or with valid_metric="sdr" the negative SD-SDR of the
     inverse-transformed estimates."""
 
     def waves(Y_est, B, C, L):
         return slicqt.backward([y.reshape((-1,) + y.shape[2:]) for y in Y_est], L).reshape(4, B, C, L)
 
-    def criterion(batch):
+    def criterion(batch, generator=None):
         x, y = batch[:, 0], batch[:, 1:]
         B, _, C, L = y.shape
         with torch.no_grad():                                    # the transforms of data need no gradient
             X = slicqt.forward(x.contiguous())
             Yt = slicqt.forward(y.reshape(B * 4, C, L))
         Y_tgt = [c.reshape(B, 4, *c.shape[1:]).transpose(0, 1) for c in Yt]
-        Y_est, Y_masks = model(X)
+        Y_est, Y_masks = model(X, generator=generator)
         total = losses.complex_mse_loss(Y_est, Y_tgt)
         if mask_sum_coef > 0.0:
             total = total + mask_sum_coef * losses.mask_sum_loss(Y_masks)
@@ -171,9 +175,9 @@ def make_train_step(slicqt: SliCQT, model: Unmix, optimizer, sdr_mcoef: float = 
             total = total + sdr_mcoef * losses.sdsdr_loss(waves(Y_est, B, C, L), y.transpose(0, 1))
         return total
 
-    def train_step(batch: torch.Tensor) -> torch.Tensor:
+    def train_step(batch: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         model.train()
-        total = criterion(batch)
+        total = criterion(batch, generator)
         optimizer.zero_grad(set_to_none=True)
         total.backward()
         optimizer.step()
@@ -190,6 +194,15 @@ def make_train_step(slicqt: SliCQT, model: Unmix, optimizer, sdr_mcoef: float = 
         return losses.sdsdr_loss(waves(Y_est, B, C, L), y.transpose(0, 1))
 
     return train_step, valid_step
+
+
+def dropout_seed(seed: int, epoch: int, batch_index: int) -> int:
+    """The LSTM's dropout seed of one step, from (seed ^ 0x5EED, epoch *
+    100003 + batch index) as the JAX trainer folds its key
+    (xumx_slicq_tpu/training.py:545, 566), so that a resumed run draws
+    the masks the uninterrupted run drew. The bits differ from JAX's."""
+    state = np.random.SeedSequence([seed ^ 0x5EED, epoch * 100003 + batch_index]).generate_state(2)
+    return int(state[0]) << 31 | int(state[1]) >> 1
 
 
 def save_checkpoint(path: Path, model: Unmix, optimizer, scheduler, is_best: bool):
@@ -234,7 +247,7 @@ def build_argparser():
                    help="bf16 conv operands with float32 results and master weights (models/nn.amp_op)")
     p.add_argument("--realtime", action="store_true", default=False)
     p.add_argument("--lstm", action="store_true", default=False,
-                   help="the LSTM variant: not ported yet (slice 4)")
+                   help="the LSTM mask model (3-layer LSTM per bucket) in place of the CDAE")
     p.add_argument("--grouped-wiener", action="store_true", default=False,
                    help="accepted for the JAX trainer's flag surface; no effect: K2 always runs "
                         "every bucket in one grouped call")
@@ -273,8 +286,6 @@ def training_main(argv=None, epoch_callback=None):
     after each epoch's checkpoint; a truthy return stops training.
     Returns the train and valid loss histories."""
     args = build_argparser().parse_args(argv)
-    if args.lstm:
-        raise NotImplementedError("--lstm: training the LSTM variant is not ported yet (it serves only)")
     if args.n_devices > 1 or args.tp > 1:
         raise NotImplementedError("--n-devices/--tp > 1: multi-card training is ROADMAP.md item 10, not ported yet")
     device = resolve_device(args.device)
@@ -305,7 +316,7 @@ def training_main(argv=None, epoch_callback=None):
             print("Computing dataset whitening statistics...")
         scaler_mean, scaler_std = get_statistics(slicqt, train_dataset, quiet=args.quiet)
 
-    model = Unmix(shapes, realtime=args.realtime, input_means=scaler_mean, input_scales=scaler_std,
+    model = Unmix(shapes, realtime=args.realtime, lstm=args.lstm, input_means=scaler_mean, input_scales=scaler_std,
                   hidden_size_1=args.hidden_size_1, hidden_size_2=args.hidden_size_2,
                   time_filter_2=args.time_filter_2, amp=args.bf16, seed=args.seed, device=device)
     if not args.quiet:
@@ -345,6 +356,9 @@ def training_main(argv=None, epoch_callback=None):
     def to_device(batch: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(batch).to(device, non_blocking=True)
 
+    # the LSTM's dropout: reseeded every step, so a resumed run draws what the uninterrupted one drew
+    dropout = torch.Generator(device=device) if args.lstm else None
+
     prof = None
     for epoch in range(start_epoch, args.epochs + 1):
         end = time.time()
@@ -363,7 +377,9 @@ def training_main(argv=None, epoch_callback=None):
                 elif bi == 4 and prof is not None:
                     _stop_profile(prof, args.profile_dir)
                     prof = None
-            loss = train_step(to_device(batch))
+            if dropout is not None:
+                dropout.manual_seed(dropout_seed(args.seed, epoch, bi))
+            loss = train_step(to_device(batch), dropout)
             # read the previous step's loss: a step stays queued while the host reads
             if pending is not None:
                 meter.update(*pending)
