@@ -13,8 +13,11 @@ seeded 236 s stereo track (the MUSDB18-HQ test-set average length) with
 launch counts and timings, and runs the realtime Separator once. Then the
 LSTM variant: K5 (CUDA C++, the LSTM recurrence) against its plain version
 over all 70 buckets offline and realtime, at 2 s and at the main path's
-layout, timed there beside cuDNN's LSTM, the canonical LSTM Separator on the card
-against the CPU, the 236 s track through it, and its realtime model once.
+layout, timed there beside cuDNN's LSTM and per hidden size (ns a step of
+each group's longest chain), its error against a float64 walk, the
+canonical LSTM Separator on the card against the CPU, the 236 s track
+through it offline and realtime, its realtime model once, and the LSTM at
+--fscale linear --fbins 262 (H = 132 and 263) on the card against the CPU.
 Then the training path: K1's and K2's backward kernels against their plain versions
 at the training shapes, one train step on the card against the CPU at
 mel-12, 13 full-width train steps (batch 32 of 2.0 s) with launch counts,
@@ -65,11 +68,12 @@ TRAIN_BATCH, TRAIN_SECONDS = 32, 2.0    # the JAX trainer's defaults (training.p
 K5_TOL = 1e-4
 LSTM_STEM_TOL = 1e-4            # |cuda - cpu| LSTM stems, fp32 both sides, 0.1-RMS input
 LSTM_PARAMS = {False: 976174, True: 1213294}    # the JAX package's counts at bark-262 (offline, realtime)
-# One K5 step's dependent latency in cycles, reckoned from csrc/lstm_recurrence.cu for the one-lane
-# (H = 1) group: the gate sum (FMA and add, 8), a gate's activation (the halving multiply, libm's
-# tanhf ~10 dependent operations ~45, the FMA of the sigmoid, ~55 in all; the four gates side by
-# side), the cell update (multiply and FMA, 8), tanhf(c) (~45) and the output product (4): ~120
-STEP_CHAIN_CYCLES = 120
+# One K5 step's dependent chain at H = 1 in SM cycles, from instruction latencies timed on an H100 with clock64
+# (tools/k5_ab.py --latency): FFMA or FADD 7, FFMA + MUFU.EX2 23, FFMA + MUFU.RCP 23. The chain of a step of
+# csrc/lstm_recurrence.cu is gate FFMA, EX2, FADD, RCP, the cell's two FFMAs, EX2, FADD, RCP and the output
+# FFMA: 4 x 23 + 2 x 7. (The kernel's own row_sum and cell_ timed as one chain take 119, its ten MUFU
+# operations queueing at the SFU; the previous design's chain, libm's tanhf five times, 168.)
+STEP_CHAIN_CYCLES = 4 * 23 + 2 * 7
 CUDNN_MAX_STEPS = 65535         # cuDNN's LSTM refuses longer sequences (CUDNN_STATUS_NOT_SUPPORTED on an H100)
 # K5b against its plain version on the card, from the same h and c, max |kernel - plain| / max |plain| of
 # d(xp) and of d(W_hh^T): the same arithmetic in another order (FMA contraction, libm's tanhf, sums of the
@@ -340,12 +344,54 @@ def cudnn_lstm_ms(layout, xp, w, max_steps=None) -> float:
         return sum(cuda_ms(lambda: m(seq), reps=1, warm=1) for m, seq, *_ in cudnn_lstms(layout, xp, w, max_steps))
 
 
+def max_sm_clock_mhz() -> float:
+    return float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                                capture_output=True, text=True, timeout=60).stdout.split()[0])
+
+
+def k5_per_hidden(layout, xp, w, clock_mhz: float):
+    """K5 on the buckets of each hidden size alone (a layout of those
+    buckets, at their lengths): per H the buckets, the longest chain, the
+    launch's ms and ns (and cycles at the max SM clock) per step of that
+    chain."""
+    from xumx_slicq_torch.kernels.lstm_recurrence import RecurrenceLayout, lstm_recurrence
+
+    rows = {}
+    for H in sorted(set(layout.hidden)):
+        ks = [k for k, h in enumerate(layout.hidden) if h == H]
+        sub = RecurrenceLayout([H] * len(ks), [layout.frames[k] for k in ks], layout.batch, layout.dirs)
+        xs = torch.cat([xp[layout.xp_offsets[k]: layout.xp_offsets[k] + layout.xp_sizes[k]] for k in ks])
+        ws = torch.cat([w[layout.w_offsets[k]: layout.w_offsets[k] + layout.w_sizes[k]] for k in ks])
+        ms = cuda_ms(lambda: lstm_recurrence(xs, ws, sub), reps=3, warm=1)
+        steps = max(sub.frames)
+        rows[H] = dict(buckets=len(ks), steps=steps, ms=ms, ns_per_step=ms * 1e6 / steps,
+                       cycles_per_step=ms * 1e3 * clock_mhz / steps)
+    return rows
+
+
+def k5_error_f64(layout, xp, w, ks):
+    """K5 on the buckets ks alone against the grouped plain walk in float64
+    on the card: per bucket (H, steps, max |h_kernel - h_f64|)."""
+    from xumx_slicq_torch.kernels.lstm_recurrence import lstm_recurrence, lstm_recurrence_grouped_plain
+
+    sub = type(layout)([layout.hidden[k] for k in ks], [layout.frames[k] for k in ks], layout.batch, layout.dirs)
+    xs = torch.cat([xp[layout.xp_offsets[k]: layout.xp_offsets[k] + layout.xp_sizes[k]] for k in ks])
+    ws = torch.cat([w[layout.w_offsets[k]: layout.w_offsets[k] + layout.w_sizes[k]] for k in ks])
+    out = lstm_recurrence(xs, ws, sub)
+    ref = lstm_recurrence_grouped_plain(xs.double(), ws.double(), sub)
+    return [[sub.hidden[i], sub.frames[i], float((a.double() - b).abs().max())]
+            for i, (a, b) in enumerate(zip(sub.h_blocks(out), sub.h_blocks(ref)))]
+
+
 def k5_lstm_recurrence(slicqt, g, kernels, batch: int, S: int):
     """K5 against its plain version over all 70 buckets, offline and
     realtime: on the CPU at the chunk batch of 2 s clips, and on the card
     at the main path's layout (chunk batch `batch` of the default chunk,
-    the longest chains); there K5 per layer with its byte bound, its serial
-    floor, the plain version's time and cuDNN's beside it."""
+    the longest chains); there K5 per layer with its bound (the larger of
+    its byte time and its serial floor), the plain version's time and
+    cuDNN's beside it, K5 on each hidden-size group alone (ns a step of its
+    longest chain), and K5's error on the longest chain and on the widest
+    bucket against a float64 walk."""
     from xumx_slicq_torch.kernels.lstm_recurrence import lstm_recurrence, lstm_recurrence_grouped_plain
 
     S2 = slicqt.n_slices(2 * 44100)
@@ -363,8 +409,7 @@ def k5_lstm_recurrence(slicqt, g, kernels, batch: int, S: int):
         small[name] = dict(max_hidden=max(layout.hidden), max_steps=max(layout.frames),
                            ms=cuda_ms(lambda: lstm_recurrence(xp, w, layout), reps=5),
                            cudnn_ms=cudnn_lstm_ms(layout, xp, w))
-    clock_mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
-                                     capture_output=True, text=True, timeout=60).stdout.split()[0])
+    clock_mhz = max_sm_clock_mhz()
     main = {}
     for realtime in (False, True):
         layout, xp, w = k5_inputs(slicqt, batch, S, realtime, g)
@@ -372,7 +417,9 @@ def k5_lstm_recurrence(slicqt, g, kernels, batch: int, S: int):
         # per (sequence, step): 4H x H multiply-adds, the 4H gate adds, ~14 operations a unit for the cell
         ops = sum(4 * layout.dirs * layout.batch * n * (8 * h * h + 4 * h + 14 * h)
                   for h, n in zip(layout.hidden, layout.frames))
-        bms, by = bound(nbytes, ops)
+        byte_ms, op_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOPS * 1e3
+        # the longest sequence's steps, one after another, each at least one step's dependent chain
+        floor_ms = max(layout.frames) * STEP_CHAIN_CYCLES / (clock_mhz * 1e3)
         name = "realtime" if realtime else "offline"
         out = lstm_recurrence(xp, w, layout)
         # the plain version on the card, run once: its output is the reference for the longest chains
@@ -386,10 +433,18 @@ def k5_lstm_recurrence(slicqt, g, kernels, batch: int, S: int):
         del out, ref
         check(finite and err <= K5_TOL, f"K5 {name} disagrees with its plain version at the main path's layout: "
               f"{err} > {K5_TOL}")
+        longest = max(range(len(layout.frames)), key=lambda k: (layout.frames[k], -layout.hidden[k]))
+        widest = max(range(len(layout.hidden)), key=lambda k: layout.hidden[k])
+        f64 = k5_error_f64(layout, xp, w, [longest, widest])
+        check(all(e <= K5_TOL for *_, e in f64), f"K5 {name} against a float64 walk: {f64} > {K5_TOL}")
         main[name] = dict(max_abs_err=err, ms=cuda_ms(lambda: lstm_recurrence(xp, w, layout), reps=5),
-                          plain_ms=start.elapsed_time(end), bound_ms=bms, bound_by=by, gbytes=nbytes / 1e9,
-                          max_steps=max(layout.frames),
-                          serial_floor_ms=max(layout.frames) * STEP_CHAIN_CYCLES / (clock_mhz * 1e3))
+                          plain_ms=start.elapsed_time(end), bound_ms=max(byte_ms, op_ms, floor_ms),
+                          bound_by="bytes" if byte_ms >= max(op_ms, floor_ms) else "operations",
+                          byte_bound_ms=byte_ms, operations_rate_ms=op_ms, serial_floor_ms=floor_ms,
+                          gbytes=nbytes / 1e9, max_steps=max(layout.frames),
+                          err_vs_float64=[dict(hidden=h, steps=n, max_abs_err=e) for h, n, e in f64],
+                          per_hidden=k5_per_hidden(layout, xp, w, clock_mhz))
+        main[name]["share_of_floor"] = floor_ms / main[name]["ms"]
         if not realtime:       # the main path: cuDNN, on the buckets whose length it takes
             main[name]["cudnn_ms_buckets_it_takes"] = cudnn_lstm_ms(layout, xp, w, CUDNN_MAX_STEPS)
             main[name]["cudnn_refuses_buckets"] = sum(n > CUDNN_MAX_STEPS for n in layout.frames)
@@ -401,6 +456,7 @@ def k5_lstm_recurrence(slicqt, g, kernels, batch: int, S: int):
         name="lstm_recurrence", route="cuda", source="xumx_slicq_torch/csrc/lstm_recurrence.cu",
         replaces="xumx_slicq_tpu/models/lstm.py:145", max_abs_err=off["max_abs_err"], ms=off["ms"],
         plain_ms=off["plain_ms"],
+        # the serial floor is a bound by operations: the longest sequence's dependent chain of them
         bound_ms=off["bound_ms"], bound_by=off["bound_by"],
         # no library call computes this at the main path's inputs: cuDNN refuses its longest sequences
         library_ms=None)
@@ -468,6 +524,86 @@ def lstm_track_236s(sep, track, kernels, batch: int):
     check(launches["wiener_em"] > 0 and launches["synth_assembly"] > 0, f"LSTM path kernel launches {launches}")
     kernels["lstm_recurrence"]["launches"] = launches["lstm_recurrence"]
     breakdown(sep, sep.slicqt, track, batch, sep.chunk_size, name="lstm_track_breakdown", model="lstm")
+
+
+def lstm_realtime_track_236s(slicqt, dev, track, batch: int):
+    """The 236 s track through the realtime LSTM Separator (the canonical
+    realtime LSTM model, weights from seed 0): s/track of 3 runs after a
+    warm-up, peak memory, and K5 launched once a layer (3 a chunk batch)."""
+    from xumx_slicq_torch.kernels.lstm_recurrence import lstm_recurrence
+    from xumx_slicq_torch.models import Unmix
+    from xumx_slicq_torch.separator import Separator
+
+    sep = Separator(slicqt, Unmix(slicqt.block_shapes(1, 2, 2 * 44100), realtime=True, lstm=True, seed=0,
+                                  device=dev), device=dev)
+    sep(track)                                                 # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = lstm_recurrence.launches
+    times = []
+    for i in range(3):
+        t0 = time.time()
+        est = sep(track)
+        torch.cuda.synchronize()
+        times.append(time.time() - t0)
+        if i == 0:
+            k5 = lstm_recurrence.launches - before
+            check(est.shape == (4, 1, 2, track.shape[-1]) and np.isfinite(est).all(),
+                  "bad realtime LSTM stems for the 236 s track")
+        del est
+    phase("lstm_realtime_track_236s", samples=track.shape[-1], chunk_batch=batch, s_per_track=times,
+          s_per_track_median=float(np.median(times)), max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+          k5_launches=k5)
+    check(k5 == 3, f"the realtime LSTM demix launched K5 {k5} times for one chunk batch, expected 3")
+
+
+def lstm_linear262(dev, rng, g):
+    """--fscale linear --fbins 262: one bucket of F = 263, so H = 132
+    offline and 263 realtime (past one block's 128 threads; W_hh too large
+    for shared memory, read from L2 every step). The LSTM model's masks on
+    the card against the CPU on a 1 s clip, offline and realtime; K5 timed
+    at the main path's layout (chunk batch 4 of the default chunk), K5's
+    train-mode forward and K5b at the training layout (batch 32 of 2 s)."""
+    from xumx_slicq_torch.kernels.lstm_recurrence import (lstm_recurrence, lstm_recurrence_backward,
+                                                          lstm_recurrence_with_cell)
+    from xumx_slicq_torch.models import Unmix
+    from xumx_slicq_torch.ops.slicqt import SliCQT
+
+    t = SliCQT(scale="linear", fbins=262, device=dev)
+    x = torch.from_numpy((rng.standard_normal((1, 2, 44100)) * 0.1).astype(np.float32))
+    res = {}
+    for realtime in (False, True):
+        name = "realtime" if realtime else "offline"
+        X = t.forward(x.to(dev))
+        shapes = [tuple(b.shape) for b in X]
+        model = Unmix(shapes, realtime=realtime, lstm=True, seed=0, device=dev)
+        cpu = Unmix(shapes, realtime=realtime, lstm=True, seed=0, device="cpu")
+        before = lstm_recurrence.launches
+        with torch.inference_mode():
+            _, masks = model.apply(X, model.inference_weights())
+            torch.cuda.synchronize()
+            k5 = lstm_recurrence.launches - before
+            _, ref = cpu.apply([b.cpu() for b in X])
+        diff = max(float((a.cpu() - b).abs().max()) for a, b in zip(masks, ref))
+        check(k5 == 3, f"linear-262 {name}: K5 launched {k5} times, expected 3")
+        check(all(bool(torch.isfinite(m).all()) for m in masks) and diff <= LSTM_STEM_TOL,
+              f"linear-262 {name}: LSTM masks on the card differ from the CPU by {diff} > {LSTM_STEM_TOL}")
+        layout, xp, w = k5_inputs(t, 4, t.n_slices(2621440), realtime, g)
+        main_ms = cuda_ms(lambda: lstm_recurrence(xp, w, layout), reps=1, warm=1)
+        main_steps = max(layout.frames)
+        del xp, w
+        layout, xp, w = k5_inputs(t, TRAIN_BATCH, t.n_slices(int(TRAIN_SECONDS * 44100)), realtime, g)
+        dh = torch.randn(layout.h_size, generator=g, device=dev)
+        train_ms = cuda_ms(lambda: lstm_recurrence_with_cell(xp, w, layout), reps=3, warm=1)
+        h, c = lstm_recurrence_with_cell(xp, w, layout)
+        k5b_ms = cuda_ms(lambda: lstm_recurrence_backward(xp, w, h, c, dh, layout), reps=3, warm=1)
+        res[name] = dict(hidden=model.blocks[0].lstm_hidden, clip_steps=shapes[0][3] * shapes[0][4],
+                         masks_max_abs_diff=diff, k5_main_path_ms=main_ms, main_path_steps=main_steps,
+                         k5_ns_per_step=main_ms * 1e6 / main_steps, k5_train_forward_ms=train_ms,
+                         k5b_ms=k5b_ms, train_steps=max(layout.frames))
+        del xp, w, dh, h, c
+        torch.cuda.empty_cache()
+    phase("lstm_linear262", tol=LSTM_STEM_TOL, **res)
 
 
 def lstm_realtime(slicqt, dev, clip):
@@ -677,8 +813,7 @@ def k5_backward(slicqt, g, kernels):
                                                           lstm_recurrence_grouped_plain, lstm_recurrence_with_cell)
 
     S2 = slicqt.n_slices(int(TRAIN_SECONDS * 44100))
-    clock_mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
-                                     capture_output=True, text=True, timeout=60).stdout.split()[0])
+    clock_mhz = max_sm_clock_mhz()
     res = {}
     for realtime in (False, True):
         name = "realtime" if realtime else "offline"
@@ -935,16 +1070,20 @@ def main():
     check(est_rt.shape == (4, 1, 2, clip.shape[-1]) and np.isfinite(est_rt).all(), "bad realtime stems")
     del sep, sep_rt
 
-    # -- phases 9-12: the LSTM variant, K5 --------------------------------------
+    # -- phases 9-14: the LSTM variant, K5 --------------------------------------
     k5_lstm_recurrence(slicqt, g, kernels, batch, S)
     torch.cuda.empty_cache()
     sep_lstm = lstm_separator_cuda_vs_cpu(slicqt, dev, rng)
     lstm_track_236s(sep_lstm, track, kernels, batch)
-    del sep_lstm, track
+    del sep_lstm
+    lstm_realtime_track_236s(slicqt, dev, track, batch)
+    del track
     lstm_realtime(slicqt, dev, clip)
     torch.cuda.empty_cache()
+    lstm_linear262(dev, rng, g)
+    torch.cuda.empty_cache()
 
-    # -- phases 13-17: the backward kernels and the training path ------------
+    # -- phases 15-19: the backward kernels and the training path ------------
     k1_backward(slicqt, g, kernels)
     k2_backward(slicqt, g, kernels)
     torch.cuda.empty_cache()
@@ -953,7 +1092,7 @@ def main():
     torch.cuda.empty_cache()
     trainer_cli(dev, clip)
 
-    # -- phases 18-21: training the LSTM variant, K5b ---------------------------
+    # -- phases 20-23: training the LSTM variant, K5b ---------------------------
     torch.cuda.empty_cache()
     k5_backward(slicqt, g, kernels)
     train_cuda_vs_cpu(dev, lstm=True)

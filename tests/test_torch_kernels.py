@@ -367,3 +367,32 @@ def test_k5b_weight_gradient_is_bit_equal_over_runs(cuda):
     dxp2, dw2 = lstm_recurrence_backward(xp, w, h, c, dh, layout)
     torch.cuda.synchronize()
     assert torch.equal(dxp1, dxp2) and torch.equal(dw1, dw2)
+
+
+@pytest.mark.parametrize("H", [132, 169, 263])
+@pytest.mark.parametrize("dirs", [2, 1], ids=["offline", "realtime"])
+def test_k5_and_k5b_take_any_hidden_size(cuda, H, dirs):
+    """K5 (serving and train mode) and K5b at hidden sizes past one block's
+    128 threads (a loop over tiles of units; W_hh read from L2 where shared
+    memory cannot hold it), short sequences, beside a bucket of H = 3 and
+    one of H = 86 (W_hh held in shared memory), against the grouped plain
+    versions on the CPU."""
+    layout = RecurrenceLayout((H, 3, 86), (40, 33, 25), 2, dirs)
+    g = torch.Generator().manual_seed(H + dirs)
+    xp = torch.randn(layout.xp_size, generator=g) * 2
+    w_hh = [(torch.rand((4, dirs, 4 * h, h), generator=g) * 2 - 1) / h ** 0.5 for h in layout.hidden]
+    w = pack_recurrent_weights(w_hh)
+    dh = torch.randn(layout.h_size, generator=g)
+    xc, wc = xp.to(cuda), w.to(cuda)
+    out = lstm_recurrence(xc, wc, layout)
+    h, c = lstm_recurrence_with_cell(xc, wc, layout)
+    dxp, dw = lstm_recurrence_backward(xc, wc, h, c, dh.to(cuda), layout)
+    torch.cuda.synchronize()
+    h_ref, c_ref = lstm_recurrence_grouped_plain(xp, w, layout, cell=True)
+    assert torch.equal(out, h)                                 # serving and train mode: the same arithmetic
+    assert float((h.cpu() - h_ref).abs().max()) <= K5_TOL
+    assert _rel(c.cpu(), c_ref) <= K5_TOL
+    dxp_ref, dw_ref = lstm_recurrence_backward_grouped_plain(xp, w, h.cpu(), c.cpu(), dh, layout)
+    assert torch.isfinite(dxp).all() and torch.isfinite(dw).all()
+    assert _rel(dxp.cpu(), dxp_ref) <= K5B_TOL
+    assert _rel(dw.cpu(), dw_ref) <= K5B_TOL

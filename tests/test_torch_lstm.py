@@ -27,6 +27,7 @@ from xumx_slicq_tpu.models import Unmix as JaxUnmix
 from xumx_slicq_tpu.models.lstm import SlicedLSTMSpec, apply_lstm, init_lstm_batch_stats, init_lstm_params
 from xumx_slicq_tpu.models.torch_import import import_lstm_state_dict
 from xumx_slicq_tpu.separator import Separator as JaxSeparator
+from xumx_slicq_torch.kernels import lstm_recurrence as k5
 from xumx_slicq_torch.kernels.lstm_recurrence import (RecurrenceLayout, lstm_recurrence, lstm_recurrence_plain,
                                                       pack_recurrent_weights, work_items)
 from xumx_slicq_torch.models import SlicedLSTM, Unmix
@@ -152,11 +153,49 @@ def test_grouped_recurrence_matches_per_bucket():
     for k, (H, n) in enumerate(zip(hidden, frames)):
         mine = items[(items[:, 4] == layout.xp_offsets[k])]
         assert (mine[:, :4] == [H, n, B, dirs]).all()
-        covered = sorted(q for first, count in mine[:, 7:] for q in range(first, first + count))
+        covered = sorted(q for first, count in mine[:, 7:9] for q in range(first, first + count))
         assert covered == list(range(4 * dirs * B))
         assert (mine[:, 8] == 1).all() == (H > 16)
     with pytest.raises(ValueError):
         lstm_recurrence(xp[:-1].contiguous(), pack_recurrent_weights(w_hh), layout)
+
+
+@pytest.mark.parametrize("scale", ["bark", "linear"], ids=["bark-262", "linear-262"])
+def test_work_items_walk_every_sequence_once(scale):
+    """K5's and K5b's work tables at the main path's layout (chunk batch 4
+    of the default chunk) and the training layout (batch 32 of 2 s),
+    offline and realtime: every (bucket, target, direction, b) exactly
+    once, each block within THREADS lanes, K5's blocks longest sequence
+    first, and W_hh held in shared memory exactly where it fits."""
+    t = SliCQT(device=DEVICE, scale=scale, fbins=262)
+    for batch, length in ((4, 2621440), (32, 2 * 44100)):
+        S = t.n_slices(length)
+        shapes = t.layout(batch, 2, S).shapes
+        for realtime in (False, True):
+            hidden = [SlicedLSTM(C, F, M, realtime=realtime).lstm_hidden for (_, C, F, _, M) in shapes]
+            layout = RecurrenceLayout(hidden, [S * M for *_, M in shapes], batch, 1 if realtime else 2)
+            for backward in (False, True):
+                items = work_items(layout, backward)
+                assert items.shape[1] == k5.ITEM_FIELDS
+                if not backward:
+                    assert (np.diff(items[:, 1]) <= 0).all()
+                for k, (H, n) in enumerate(zip(layout.hidden, layout.frames)):
+                    mine = items[items[:, 4] == layout.xp_offsets[k]]
+                    assert (mine[:, :7] == [H, n, batch, layout.dirs, layout.xp_offsets[k], layout.h_offsets[k],
+                                            layout.w_offsets[k]]).all()
+                    covered = sorted(q for first, count in mine[:, 7:9] for q in range(first, first + count))
+                    assert covered == list(range(4 * layout.dirs * batch))
+                    lanes = mine[:, 9]
+                    assert (lanes == lanes[0]).all()
+                    if H > k5.GROUP_H:
+                        assert (mine[:, 8] == 1).all()
+                        held = k5._block_smem(H, False, w_held=True) <= k5.SMEM_LIMIT
+                        assert lanes[0] == (0 if backward or held else -1)
+                    else:
+                        assert lanes[0] == 1 << (H - 1).bit_length()
+                        assert (mine[:, 8] * lanes <= k5.THREADS).all()
+            if scale == "linear":
+                assert set(hidden) == {263 if realtime else 132}
 
 
 @pytest.fixture(scope="module")
@@ -167,11 +206,9 @@ def mel12_blocks():
     return Xt, [jnp.asarray(b.numpy()) for b in Xt]
 
 
-@pytest.mark.parametrize("realtime", [False, True], ids=["offline", "realtime"])
-def test_unmix_lstm_matches_jax(mel12_blocks, realtime):
-    """The whole model at mel-12 (K5's grouped path: every bucket's layer
-    in one recurrence call): masks and complex estimates."""
-    Xt, Xj = mel12_blocks
+def _unmix_matches_jax(Xt, Xj, realtime):
+    """The port's Unmix(lstm=True) against the JAX Unmix.apply on the same
+    blocks and weights: masks and complex estimates."""
     shapes = [tuple(x.shape) for x in Xt]
     model = _port_unmix(shapes, realtime)
     ju, params, stats = _jax_from_port(model, shapes, realtime)
@@ -182,6 +219,52 @@ def test_unmix_lstm_matches_jax(mel12_blocks, realtime):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0, atol=ATOL)
     for a, b in zip(Y, Y_ref):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0, atol=ATOL)
+    return model
+
+
+@pytest.mark.parametrize("realtime", [False, True], ids=["offline", "realtime"])
+def test_unmix_lstm_matches_jax(mel12_blocks, realtime):
+    """The whole model at mel-12 (K5's grouped path: every bucket's layer
+    in one recurrence call): masks and complex estimates."""
+    _unmix_matches_jax(*mel12_blocks, realtime)
+
+
+WIDE = (1, 2, 263, 3, 16)       # the linear-262 bucket: F = 263, C = 2; 48 steps
+
+
+@pytest.mark.parametrize("realtime", [False, True], ids=["offline", "realtime"])
+def test_sliced_lstm_matches_jax_past_h128(realtime):
+    """A bucket of F = 263 (H = 132 offline, 263 realtime: past the 128
+    that K5's block path once held, which the CPU path refused too) against
+    apply_lstm, on a short block."""
+    B, C, F, S, T = WIDE
+    spec = SlicedLSTMSpec(C, F, T, realtime=realtime)
+    params, stats = _jitter(init_lstm_params(jax.random.PRNGKey(7), spec), init_lstm_batch_stats(spec), 5)
+    x = np.abs(noise(263, WIDE))
+    ref = jax.jit(lambda p, st, x: apply_lstm(p, st, x, spec)[0])(params, stats, x)
+    blk = SlicedLSTM(C, F, T, realtime=realtime).eval()
+    assert blk.lstm_hidden == spec.lstm_hidden == (263 if realtime else 132)
+    sd = lstm_params_from_jax({"blocks": [params]}, {"blocks": [stats]})
+    blk.load_state_dict({k.removeprefix("blocks.0."): v for k, v in sd.items()})
+    out = blk(torch.from_numpy(x))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref), rtol=0, atol=ATOL)
+
+
+@pytest.fixture(scope="module")
+def linear262_blocks():
+    """The port's --fscale linear --fbins 262 blocks of a 0.3 s clip (one
+    bucket, F = 263), and the same values for JAX."""
+    x = noise(13, (1, 2, TINY_LEN), 0.1)
+    Xt = list(SliCQT(device=DEVICE, scale="linear", fbins=262).forward(torch.from_numpy(x)))
+    return Xt, [jnp.asarray(b.numpy()) for b in Xt]
+
+
+@pytest.mark.parametrize("realtime", [False, True], ids=["offline", "realtime"])
+def test_unmix_lstm_matches_jax_at_linear262(linear262_blocks, realtime):
+    """The whole LSTM model at linear-262, whose one bucket has H = 132
+    offline and 263 realtime."""
+    model = _unmix_matches_jax(*linear262_blocks, realtime)
+    assert [blk.lstm_hidden for blk in model.blocks] == [263 if realtime else 132]
 
 
 @pytest.mark.parametrize("realtime", [False, True], ids=["offline", "realtime"])

@@ -105,26 +105,26 @@ def test_grouped_plain_backward_matches_autograd(H, dirs):
         assert float((dw1 - ref_w).abs().max()) <= 1e-10 * float(gwp.abs().max())
 
 
-def test_plain_backward_matches_jax_grad():
+def _plain_backward_against_jax_vjp(layout, seed):
     """The grouped plain backward against jax.vjp of _lstm_cell_scan (the
     JAX package's scan, W_ih = I and zero biases so that its input is xp),
-    every target and direction of two buckets, float32, the same numpy
-    inputs."""
-    layout = RecurrenceLayout((3, 17), (9, 6), 2, 2)
-    rng = np.random.default_rng(3)
+    every target and direction of the layout's buckets, float32, the same
+    numpy inputs: relative norm 1e-5."""
+    rng = np.random.default_rng(seed)
+    dirs = layout.dirs
     xp = (rng.standard_normal(layout.xp_size) * 2).astype(np.float32)
-    w_hh = [((rng.random((4, 2, 4 * h, h)) * 2 - 1) / h ** 0.5).astype(np.float32) for h in layout.hidden]
+    w_hh = [((rng.random((4, dirs, 4 * h, h)) * 2 - 1) / h ** 0.5).astype(np.float32) for h in layout.hidden]
     dh = rng.standard_normal(layout.h_size).astype(np.float32)
 
     def layer(xs, ws):
         """The packed h of the layout through _lstm_cell_scan, vmapped over targets."""
         out = []
-        for x, w in zip(xs, ws):                           # x (4, 2, frames, B, 4H), w (4, 2, 4H, H)
+        for x, w in zip(xs, ws):                           # x (4, dirs, frames, B, 4H), w (4, dirs, 4H, H)
             G = x.shape[-1]
             eye, zero = jnp.eye(G, dtype=jnp.float32), jnp.zeros(G, jnp.float32)
-            dirs = [jax.vmap(lambda xt, wt, rev=rev: _lstm_cell_scan(xt, eye, wt, zero, zero, reverse=rev))(
-                x[:, d], w[:, d]) for d, rev in ((0, False), (1, True))]
-            out.append(jnp.concatenate(dirs, axis=-1).reshape(-1))
+            hs = [jax.vmap(lambda xt, wt, rev=rev: _lstm_cell_scan(xt, eye, wt, zero, zero, reverse=rev))(
+                x[:, d], w[:, d]) for d, rev in ((0, False), (1, True))[:dirs]]
+            out.append(jnp.concatenate(hs, axis=-1).reshape(-1))
         return jnp.concatenate(out)
 
     xs = [jnp.asarray(b.numpy()) for b in layout.xp_blocks(torch.from_numpy(xp))]
@@ -138,6 +138,19 @@ def test_plain_backward_matches_jax_grad():
         assert norm_rel(ours, np.array(ref)) <= 1e-5
     for ours, ref in zip(layout.w_blocks(dw), jdw):
         assert norm_rel(ours, np.array(ref).swapaxes(-1, -2)) <= 1e-5
+
+
+def test_plain_backward_matches_jax_grad():
+    """Two buckets (H = 3 and 17), both directions."""
+    _plain_backward_against_jax_vjp(RecurrenceLayout((3, 17), (9, 6), 2, 2), seed=3)
+
+
+@pytest.mark.parametrize("dirs", [2, 1], ids=["bidirectional", "unidirectional"])
+@pytest.mark.parametrize("H", [132, 263])
+def test_plain_backward_matches_jax_grad_past_h128(H, dirs):
+    """The linear-262 bucket's hidden sizes (132 offline, 263 realtime),
+    which the port once refused, on 8 frames."""
+    _plain_backward_against_jax_vjp(RecurrenceLayout((H,), (8,), 2, dirs), seed=H + dirs)
 
 
 def test_batch_norm1d_train_matches_jax():

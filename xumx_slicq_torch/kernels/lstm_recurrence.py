@@ -27,8 +27,9 @@ steps with the arithmetic of _lstm_cell_scan; `lstm_recurrence_grouped_plain`
 runs it over a whole layout, walking the buckets of one hidden size
 together. The wrapper `lstm_recurrence` runs that for CPU tensors and
 launches the CUDA kernel
-(csrc/lstm_recurrence.cu, one launch per layer for all buckets) for CUDA
-tensors; `lstm_recurrence.launches` counts those launches.
+(csrc/lstm_recurrence.cu, one launch per layer for all buckets, any hidden
+size: `work_items` is its table of blocks) for CUDA tensors;
+`lstm_recurrence.launches` counts those launches.
 
 Training (the JAX package differentiates through the scan,
 xumx_slicq_tpu/training.py:273-274): when xp or W_hh^T needs a gradient,
@@ -58,8 +59,10 @@ from . import build
 NB_TARGETS = 4
 GROUP_H = 16          # hidden sizes up to this run a group of lanes per sequence; larger ones a block each
 THREADS = 128         # threads per block (csrc/lstm_recurrence.cu)
-MAX_H = 128           # the block path holds at most 4 gate rows per thread: 4H <= 4 * THREADS
-ITEM_FIELDS = 9       # H, frames, B, dirs, xp offset, h offset, W offset, first sequence, sequences
+# H, frames, B, dirs, xp offset, h offset, W offset, first sequence, sequences, lanes per sequence (a group
+# of lanes; or a block per sequence: 0 with W_hh held in shared memory, -1 with W_hh read from L2 each step)
+ITEM_FIELDS = 10
+SMEM_LIMIT = 232448   # an H100's dynamic shared memory per block (bytes); the wrapper asks the card
 
 
 class RecurrenceLayout:
@@ -281,25 +284,65 @@ def lstm_recurrence_backward_grouped_plain(xp: torch.Tensor, w: torch.Tensor, h:
     return dxp, dw
 
 
-def work_items(layout: RecurrenceLayout) -> np.ndarray:
-    """K5's (and K5b's) work table: one row of ITEM_FIELDS int64 per block.
-    A bucket with H <= GROUP_H runs a group of lanes per sequence (the
-    power of two >= H), THREADS / group sequences a block; a larger one a
-    block per sequence. Sequence q of a bucket is (t, d, b) with
-    q = (t dirs + d) B + b."""
+def _lanes(H: int) -> int:
+    """Lanes per sequence: a group of the power of two >= H (H <= GROUP_H), or 0 for a block."""
+    return 1 << (H - 1).bit_length() if H <= GROUP_H else 0
+
+
+def _block_smem(H: int, backward: bool, w_held: bool = False) -> int:
+    """Bytes of dynamic shared memory of a block per sequence (csrc/lstm_recurrence.cu): K5's h twice and
+    its cells (3 Hp floats, Hp = H rounded up to 4), with W_hh held H (4 Hp + 4) more; K5b's gates and
+    their gradients, dh_rec and dc_rec (10 H floats)."""
+    if backward:
+        return 10 * H * 4
+    Hp = -(-H // 4) * 4
+    return (3 * Hp + (H * (4 * Hp + 4) if w_held else 0)) * 4
+
+
+def work_items(layout: RecurrenceLayout, backward: bool = False, smem_limit: int = SMEM_LIMIT) -> np.ndarray:
+    """K5's (or with `backward` K5b's) work table: one row of ITEM_FIELDS int64 per block.
+    A bucket with H <= GROUP_H runs a group of lanes per sequence (the power of two >= H), THREADS / lanes
+    sequences a block; a larger one a block per sequence, in K5 with its W_hh in shared memory when that
+    fits smem_limit bytes. Sequence q of a bucket is (t, d, b) with q = (t dirs + d) B + b. K5's blocks are
+    ordered longest sequence first, so that the longest chains start at once whatever the card holds.
+    Raises if a block needs more shared memory than smem_limit."""
     rows = []
     for k, (H, frames) in enumerate(zip(layout.hidden, layout.frames)):
         base = [H, frames, layout.batch, layout.dirs, layout.xp_offsets[k], layout.h_offsets[k], layout.w_offsets[k]]
         nseq = NB_TARGETS * layout.dirs * layout.batch
-        per_block = THREADS // (1 << (H - 1).bit_length()) if H <= GROUP_H else 1
-        rows += [base + [q, min(per_block, nseq - q)] for q in range(0, nseq, per_block)]
+        lanes = _lanes(H)
+        if lanes > 0 and not backward and frames * layout.batch * 4 * H >= 2 ** 31:
+            raise ValueError(f"lstm_recurrence: a sequence batch of {frames} steps at B = {layout.batch}, H = {H} "
+                             "exceeds K5's 32-bit step offsets")
+        if lanes == 0:
+            need = _block_smem(H, backward)
+            if need > smem_limit:
+                raise ValueError(f"lstm_recurrence: H = {H} needs {need} bytes of shared memory a block, "
+                                 f"the card holds {smem_limit}")
+            if not backward:
+                lanes = 0 if _block_smem(H, False, w_held=True) <= smem_limit else -1
+        per_block = THREADS // lanes if lanes > 0 else 1
+        rows += [base + [q, min(per_block, nseq - q), lanes] for q in range(0, nseq, per_block)]
+    if not backward:
+        rows.sort(key=lambda r: -r[1])
     return np.asarray(rows, dtype=np.int64).reshape(-1, ITEM_FIELDS)
 
 
+def smem_bytes(items: np.ndarray, backward: bool = False) -> int:
+    """The dynamic shared memory a launch of this work table gives every block: its largest block's.
+    With W_hh held (123.5 KB at H = 86) that leaves one block an SM; the table runs the longest chains
+    first, so the blocks that queue past the SM count (realtime chunk batch 8: 169) are the shortest."""
+    wide = items[items[:, 9] <= 0]
+    return max((_block_smem(int(H), backward, w_held=mode == 0) for H, mode in zip(wide[:, 0], wide[:, 9])),
+               default=0)
+
+
 @functools.lru_cache(maxsize=64)
-def _device_items(layout: RecurrenceLayout, device: torch.device) -> torch.Tensor:
-    """The work table of one layout on one device, built once."""
-    return torch.from_numpy(work_items(layout)).to(device)
+def _device_plan(layout: RecurrenceLayout, device: torch.device, backward: bool = False):
+    """(work table on the device, dynamic shared memory bytes) of one layout, built once."""
+    limit = build.function("lstm_recurrence", "lstm_recurrence_smem_limit", ())()
+    items = work_items(layout, backward, limit)
+    return torch.from_numpy(items).to(device), smem_bytes(items, backward)
 
 
 def _check(xp: torch.Tensor, w: torch.Tensor, layout: RecurrenceLayout):
@@ -312,8 +355,10 @@ def _check(xp: torch.Tensor, w: torch.Tensor, layout: RecurrenceLayout):
         raise ValueError("lstm_recurrence: xp and weights must be contiguous")
     if xp.device != w.device or xp.device.type not in ("cpu", "cuda"):
         raise ValueError(f"lstm_recurrence: xp on {xp.device}, weights on {w.device}")
-    if layout.dirs not in (1, 2) or max(layout.hidden) > MAX_H:
-        raise ValueError(f"lstm_recurrence: dirs must be 1 or 2 and H <= {MAX_H}")
+    if layout.dirs not in (1, 2):
+        raise ValueError("lstm_recurrence: dirs must be 1 or 2")
+    if xp.device.type == "cuda" and xp.data_ptr() % 16:
+        raise ValueError("lstm_recurrence: xp must start on a 16-byte boundary (the kernel reads 16 bytes at once)")
 
 
 def _forward(xp: torch.Tensor, w: torch.Tensor, layout: RecurrenceLayout, cell: bool = False):
@@ -323,13 +368,13 @@ def _forward(xp: torch.Tensor, w: torch.Tensor, layout: RecurrenceLayout, cell: 
         return res if cell else (res, None)
     out = torch.empty(layout.h_size, dtype=torch.float32, device=xp.device)
     c = torch.empty_like(out) if cell else None
-    items = _device_items(layout, xp.device)
+    items, smem = _device_plan(layout, xp.device)
     fn = build.function("lstm_recurrence", "lstm_recurrence", (
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-        ctypes.c_void_p))
+        ctypes.c_int64, ctypes.c_void_p))
     stream = torch.cuda.current_stream(xp.device).cuda_stream
     rc = fn(xp.data_ptr(), w.data_ptr(), out.data_ptr(), c.data_ptr() if cell else None, items.data_ptr(),
-            items.shape[0], stream)
+            items.shape[0], smem, stream)
     if rc != 0:
         raise RuntimeError(f"lstm_recurrence: kernel launch failed with cudaError {rc}")
     lstm_recurrence.launches += 1
@@ -354,13 +399,13 @@ def lstm_recurrence_backward(xp: torch.Tensor, w: torch.Tensor, h: torch.Tensor,
         return lstm_recurrence_backward_grouped_plain(xp, w, h, c, dh, layout)
     dxp = torch.empty_like(xp)
     partials = torch.empty((layout.batch, layout.w_size), dtype=torch.float32, device=xp.device)
-    items = _device_items(layout, xp.device)
+    items, smem = _device_plan(layout, xp.device, backward=True)
     fn = build.function("lstm_recurrence", "lstm_recurrence_backward", (
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p))
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p))
     stream = torch.cuda.current_stream(xp.device).cuda_stream
     rc = fn(xp.data_ptr(), w.data_ptr(), h.data_ptr(), c.data_ptr(), dh.data_ptr(), dxp.data_ptr(),
-            partials.data_ptr(), layout.w_size, items.data_ptr(), items.shape[0], stream)
+            partials.data_ptr(), layout.w_size, items.data_ptr(), items.shape[0], smem, stream)
     if rc != 0:
         raise RuntimeError(f"lstm_recurrence_backward: kernel launch failed with cudaError {rc}")
     lstm_recurrence_backward.launches += 1
