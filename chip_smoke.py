@@ -19,12 +19,14 @@ canonical LSTM Separator on the card against the CPU, the 236 s track
 through it offline and realtime, its realtime model once, and the LSTM at
 --fscale linear --fbins 262 (H = 132 and 263) on the card against the CPU.
 Then the training path: K1's and K2's backward kernels against their plain versions
-at the training shapes, one train step on the card against the CPU at
-mel-12, 13 full-width train steps (batch 32 of 2.0 s) with launch counts,
+at the training shapes (K2's with each pass's registers, spills and TB/s),
+one train step on the card against the CPU at mel-12, 13 full-width train
+steps (batch 32 of 2.0 s) with launch counts,
 memory and a profile, and the trainer's CLI with a resume and a reload.
 Last, training the LSTM variant: K5's train-mode forward and K5b (its
 backward through time) against their plain versions at the training
-layout, offline and realtime, timed beside cuDNN's LSTM; one LSTM train
+layout, offline and realtime, timed beside cuDNN's LSTM and per hidden
+size (with and without K5b's separate d(W_hh) passes); one LSTM train
 step on the card against the CPU at mel-12; 13 canonical LSTM train steps
 with K5 and K5b launches counted; and the trainer's CLI with --lstm.
 Weights are random, drawn from a seed. Any failed check exits non-zero.
@@ -79,11 +81,11 @@ CUDNN_MAX_STEPS = 65535         # cuDNN's LSTM refuses longer sequences (CUDNN_S
 # d(xp) and of d(W_hh^T): the same arithmetic in another order (FMA contraction, libm's tanhf, sums of the
 # matvec in another order), carried back through up to 3,212 steps
 K5B_TOL = 1e-4
-# One K5b step's dependent chain in cycles, reckoned from csrc/lstm_recurrence.cu for the one-lane group:
-# dh = dh_out + dh_rec (add, 4), dc = dc_rec + dh o (1 - tc^2) (multiply and FMA, 8), the four gate
-# gradients side by side (three dependent multiplies, 12) and dh_rec, four dependent FMAs (16): ~40. The
-# gate recompute reads only saved values and lies off the chain.
-STEP_CHAIN_CYCLES_BACKWARD = 40
+# One K5b step's dependent chain at H = 1 in SM cycles, timed on an H100 with clock64 (tools/k5_ab.py --latency,
+# k5b_step_h1_kernel: 29.8): csrc/lstm_recurrence.cu's cell_chain_ and rec_contributions, dh = dh_out + dh_rec,
+# dc = dc_rec + dh kd, the gate gradients, dh_rec's two-deep FMA tree. The gate recompute reads only saved values
+# and lies off the chain (the previous design's arithmetic of the same chain: 45.0)
+STEP_CHAIN_CYCLES_BACKWARD = 30
 # LSTM train step, card against CPU at mel-12: gradients ||cuda - cpu|| / max(||cpu||, 1e-2 of the largest
 # norm) per tensor. Train-mode BatchNorm after the LSTM leaves some gradients (the last layer's biases, the
 # whitening) small remainders of cancelling sums, whose float32 rounding reaches 1e-5 of the largest norm
@@ -283,15 +285,22 @@ def k2_backward(slicqt, g, kernels):
     pass1_ms = cuda_ms(lambda: triton_wiener_em.backward_pass1(x, v, gy, tables, parts, maxima, gpart), reps=20)
     pass2_ms = cuda_ms(lambda: triton_wiener_em.backward_pass2(x, v, gy, tables, parts, maxima, gpart, gv),
                        reps=20)
+    compiled = {"pass1": triton_wiener_em.backward_pass1(x, v, gy, tables, parts, maxima, gpart),
+                "pass2": triton_wiener_em.backward_pass2(x, v, gy, tables, parts, maxima, gpart, gv)}
     plain_ms = cuda_ms(lambda: wiener_em_backward_plain(x, v, gy, layout), reps=3, warm=1)
     positions = layout.size // 2
+    # each pass reads x, v and gy (112 B a position); pass 2 also writes dL/dv (32 B)
+    passes = {name: dict(ms=t, n_regs=getattr(compiled[name], "n_regs", "not read"),
+                         n_spills=getattr(compiled[name], "n_spills", "not read"),
+                         tbytes_per_s=positions * nb / (t * 1e-3) / 1e12)
+              for name, t, nb in (("pass1", pass1_ms, 112), ("pass2", pass2_ms, 144))}
     # per position: read x (16 B), v (32 B) and gy (64 B), write dL/dv (32 B); ~700 fp32
     # operations per position, counted from the plain version. Both passes read the three inputs.
     bms, by = bound(positions * 144, positions * 700)
     phase("k2_backward", buckets=len(layout.shapes), batch=TRAIN_BATCH, positions=positions, max_abs_err=err,
-          rel_err=rel, rel_err_vs_autograd=rel_autograd, tol=K2B_TOL, ms=ms, pass1_ms=pass1_ms,
-          pass2_ms=pass2_ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-          two_pass_floor_ms=positions * 256 / HBM_BYTES_PER_S * 1e3, gbytes=positions * 144 / 1e9)
+          rel_err=rel, rel_err_vs_autograd=rel_autograd, tol=K2B_TOL, ms=ms, passes=passes, plain_ms=plain_ms,
+          bound_ms=bms, bound_by=by, two_pass_floor_ms=positions * 256 / HBM_BYTES_PER_S * 1e3,
+          gbytes=positions * 144 / 1e9)
     check(rel <= K2B_TOL, f"K2 backward disagrees with its plain version: rel err {rel} > {K2B_TOL}")
     check(rel_autograd <= K2B_TOL, f"K2 backward disagrees with autograd: rel err {rel_autograd} > {K2B_TOL}")
     kernels["wiener_em_backward"] = dict(
@@ -349,23 +358,89 @@ def max_sm_clock_mhz() -> float:
                                 capture_output=True, text=True, timeout=60).stdout.split()[0])
 
 
+def _buckets_alone(layout, ks):
+    """The layout of the buckets ks alone, and take(packed, kind) that cuts a
+    packed buffer of `kind` ("xp", "h" or "w") down to those buckets."""
+    sub = type(layout)([layout.hidden[k] for k in ks], [layout.frames[k] for k in ks], layout.batch, layout.dirs)
+    spans = {"xp": (layout.xp_offsets, layout.xp_sizes), "h": (layout.h_offsets, layout.h_sizes),
+             "w": (layout.w_offsets, layout.w_sizes)}
+
+    def take(t, kind):
+        offs, lens = spans[kind]
+        return torch.cat([t[offs[k]: offs[k] + lens[k]] for k in ks])
+    return sub, take
+
+
 def k5_per_hidden(layout, xp, w, clock_mhz: float):
     """K5 on the buckets of each hidden size alone (a layout of those
     buckets, at their lengths): per H the buckets, the longest chain, the
     launch's ms and ns (and cycles at the max SM clock) per step of that
     chain."""
-    from xumx_slicq_torch.kernels.lstm_recurrence import RecurrenceLayout, lstm_recurrence
+    from xumx_slicq_torch.kernels.lstm_recurrence import lstm_recurrence
 
     rows = {}
     for H in sorted(set(layout.hidden)):
-        ks = [k for k, h in enumerate(layout.hidden) if h == H]
-        sub = RecurrenceLayout([H] * len(ks), [layout.frames[k] for k in ks], layout.batch, layout.dirs)
-        xs = torch.cat([xp[layout.xp_offsets[k]: layout.xp_offsets[k] + layout.xp_sizes[k]] for k in ks])
-        ws = torch.cat([w[layout.w_offsets[k]: layout.w_offsets[k] + layout.w_sizes[k]] for k in ks])
+        sub, take = _buckets_alone(layout, [k for k, h in enumerate(layout.hidden) if h == H])
+        xs, ws = take(xp, "xp"), take(w, "w")
         ms = cuda_ms(lambda: lstm_recurrence(xs, ws, sub), reps=3, warm=1)
         steps = max(sub.frames)
-        rows[H] = dict(buckets=len(ks), steps=steps, ms=ms, ns_per_step=ms * 1e6 / steps,
+        rows[H] = dict(buckets=len(sub.hidden), steps=steps, ms=ms, ns_per_step=ms * 1e6 / steps,
                        cycles_per_step=ms * 1e3 * clock_mhz / steps)
+    return rows
+
+
+def k5b_walk_only():
+    """K5b's entry point from csrc/lstm_recurrence.cu built with
+    K5B_NO_DW_PASS (its separate d(W_hh) passes left out; d(W_hh) summed
+    inside the walk stays), for timing the walk apart; None when the source
+    has no such passes to leave out."""
+    import ctypes
+
+    from xumx_slicq_torch.kernels import build
+
+    src = build.CSRC / "lstm_recurrence.cu"
+    if "K5B_NO_DW_PASS" not in src.read_text():
+        return None
+    out = build.BUILD_DIR / "k5b_walk_only"
+    out.mkdir(parents=True, exist_ok=True)
+    lib = out / "liblstm_recurrence.so"
+    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-DK5B_NO_DW_PASS", "-o", str(lib), str(src)], check=True,
+                   capture_output=True)
+    fn = ctypes.CDLL(str(lib)).lstm_recurrence_backward
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                                           ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def k5b_per_hidden(layout, xp, w, h, c, dh, clock_mhz: float, walk_fn=None):
+    """K5b on the buckets of each hidden size alone (as k5_per_hidden): per H
+    the buckets, the longest chain, the launch's ms (with the sum of its
+    d(W_hh) rows) and ns (and cycles at the max SM clock) a step of that
+    chain; with walk_fn (k5b_walk_only) also the walk's ms without the
+    separate d(W_hh) pass."""
+    from xumx_slicq_torch.kernels.lstm_recurrence import _device_plan, lstm_recurrence_backward
+
+    rows = {}
+    for H in sorted(set(layout.hidden)):
+        sub, take = _buckets_alone(layout, [k for k, hh in enumerate(layout.hidden) if hh == H])
+        args = (take(xp, "xp"), take(w, "w"), take(h, "h"), take(c, "h"), take(dh, "h"), sub)
+        ms = cuda_ms(lambda: lstm_recurrence_backward(*args), reps=3, warm=1)
+        steps = max(sub.frames)
+        rows[H] = dict(buckets=len(sub.hidden), steps=steps, ms=ms, ns_per_step=ms * 1e6 / steps,
+                       cycles_per_step=ms * 1e3 * clock_mhz / steps)
+        if walk_fn is not None:
+            items, smem = _device_plan(sub, xp.device, backward=True)
+            dxp = torch.empty_like(args[0])
+            parts = torch.empty((sub.batch, sub.w_size), device=xp.device)
+            stream = torch.cuda.current_stream().cuda_stream
+            ptrs = [t.data_ptr() for t in args[:5]] + [dxp.data_ptr(), parts.data_ptr()]
+
+            def walk():
+                check(walk_fn(*ptrs, sub.w_size, items.data_ptr(), items.shape[0], smem, stream) == 0,
+                      "K5b walk-only launch failed")
+            walk_ms = cuda_ms(walk, reps=3, warm=1)
+            rows[H].update(walk_ms=walk_ms, walk_ns_per_step=walk_ms * 1e6 / steps, dw_pass_ms=ms - walk_ms)
     return rows
 
 
@@ -374,9 +449,8 @@ def k5_error_f64(layout, xp, w, ks):
     on the card: per bucket (H, steps, max |h_kernel - h_f64|)."""
     from xumx_slicq_torch.kernels.lstm_recurrence import lstm_recurrence, lstm_recurrence_grouped_plain
 
-    sub = type(layout)([layout.hidden[k] for k in ks], [layout.frames[k] for k in ks], layout.batch, layout.dirs)
-    xs = torch.cat([xp[layout.xp_offsets[k]: layout.xp_offsets[k] + layout.xp_sizes[k]] for k in ks])
-    ws = torch.cat([w[layout.w_offsets[k]: layout.w_offsets[k] + layout.w_sizes[k]] for k in ks])
+    sub, take = _buckets_alone(layout, ks)
+    xs, ws = take(xp, "xp"), take(w, "w")
     out = lstm_recurrence(xs, ws, sub)
     ref = lstm_recurrence_grouped_plain(xs.double(), ws.double(), sub)
     return [[sub.hidden[i], sub.frames[i], float((a.double() - b).abs().max())]
@@ -807,13 +881,15 @@ def k5_backward(slicqt, g, kernels):
     3,212 steps at most, H up to 43 offline and 86 realtime), K5b from the
     kernel's own h and c; a second K5b run must give the same bits. Per
     layer: K5b's ms (its launch and the sum of its d(W_hh) rows), its byte
-    bound and serial floor, the plain versions' ms and cuDNN's."""
+    bound and serial floor, the plain versions' ms and cuDNN's; per hidden
+    size, K5b alone and its walk without the separate d(W_hh) pass."""
     from xumx_slicq_torch.kernels.lstm_recurrence import (lstm_recurrence, lstm_recurrence_backward,
                                                           lstm_recurrence_backward_grouped_plain,
                                                           lstm_recurrence_grouped_plain, lstm_recurrence_with_cell)
 
     S2 = slicqt.n_slices(int(TRAIN_SECONDS * 44100))
     clock_mhz = max_sm_clock_mhz()
+    walk_fn = k5b_walk_only()
     res = {}
     for realtime in (False, True):
         name = "realtime" if realtime else "offline"
@@ -868,7 +944,8 @@ def k5_backward(slicqt, g, kernels):
                          forward_serve_ms=serve_ms, forward_train_ms=train_fwd_ms, bound_ms=bms, bound_by=by,
                          gbytes=nbytes / 1e9,
                          serial_floor_ms=max(layout.frames) * STEP_CHAIN_CYCLES_BACKWARD / (clock_mhz * 1e3),
-                         cudnn_forward_ms=cudnn_fwd_ms, cudnn_backward_ms=cudnn_bwd_ms)
+                         cudnn_forward_ms=cudnn_fwd_ms, cudnn_backward_ms=cudnn_bwd_ms,
+                         per_hidden=k5b_per_hidden(layout, xp, w, h, c, dh, clock_mhz, walk_fn))
         del xp, w, dh, h, c, dxp, dw
         torch.cuda.empty_cache()
     phase("k5_backward", tol=K5B_TOL, batch=TRAIN_BATCH, slices=S2, step_chain_cycles=STEP_CHAIN_CYCLES_BACKWARD,

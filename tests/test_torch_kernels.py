@@ -22,15 +22,15 @@ import torch
 from xumx_slicq_torch.kernels.lstm_recurrence import (RecurrenceLayout, lstm_recurrence, lstm_recurrence_backward,
                                                       lstm_recurrence_backward_grouped_plain,
                                                       lstm_recurrence_grouped_plain, lstm_recurrence_with_cell,
-                                                      pack_recurrent_weights)
+                                                      pack_recurrent_weights, work_items)
 from xumx_slicq_torch.kernels.synth_assembly import (synth_assembly, synth_assembly_backward,
                                                      synth_assembly_backward_plain, synth_assembly_plain)
-from xumx_slicq_torch.kernels.wiener_em import (stability_scale, wiener_em, wiener_em_backward,
+from xumx_slicq_torch.kernels.wiener_em import (CHUNK, stability_scale, wiener_em, wiener_em_backward,
                                                 wiener_em_backward_plain, wiener_em_grouped,
                                                 wiener_em_grouped_plain, wiener_em_plain)
 from xumx_slicq_torch.models import Unmix
 from xumx_slicq_torch.ops import wiener as wiener_ops
-from xumx_slicq_torch.ops.packed import PackedBlocks
+from xumx_slicq_torch.ops.packed import BucketLayout, PackedBlocks
 from xumx_slicq_torch.ops.slicqt import SliCQT
 
 pytestmark = pytest.mark.cuda
@@ -40,6 +40,7 @@ K2_LAUNCHES = 3                                    # device launches per K2 call
 TRAIN_LEN = 2 * 44100                             # the training layout: batch 32 of 2.0 s
 K5_TOL = 1e-4
 K5B_TOL = 1e-4
+K2B_TOL = 1e-4
 
 
 @pytest.fixture
@@ -248,6 +249,25 @@ def test_k2_two_forwards_then_one_backward(cuda):
     assert torch.isfinite(torch.autograd.grad(y2, vr2, gy)[0]).all()
 
 
+def test_k2_backward_long_one_bin_row(cuda):
+    """K2's backward on a one-bin bucket whose rows run 3.5 pass-1 chunks
+    (several partial sums a row, a ragged last pass-2 block) beside a
+    small bucket, against the plain closed form and against autograd of
+    the grouped plain forward, per bucket."""
+    layout = BucketLayout([(2, 2, 1, 7, 2048), (2, 2, 3, 5, 37)])
+    assert layout.shapes[0][3] * layout.shapes[0][4] > 3 * CHUNK
+    x, v = _packed_inputs(layout, cuda, seed=23)
+    gy = torch.randn(4 * layout.size, generator=torch.Generator(device=cuda).manual_seed(24), device=cuda,
+                     dtype=torch.complex64)
+    gv = _k2_grad(x, v, gy, layout)
+    torch.cuda.synchronize()
+    assert torch.isfinite(gv).all()
+    assert max(_bucket_rels(gv, wiener_em_backward_plain(x, v, gy, layout), layout)) <= K2B_TOL
+    vr = v.clone().requires_grad_(True)
+    (ga,) = torch.autograd.grad(wiener_em_grouped_plain(x, vr, layout), vr, gy)
+    assert max(_bucket_rels(gv, ga, layout)) <= K2B_TOL
+
+
 def _k5_inputs(shapes, realtime, device, seed):
     """A K5 layout of block shapes (B, C, F, S, T) as the LSTM model sizes
     it, projections of the spread a trained model gives, and W_hh at
@@ -396,3 +416,54 @@ def test_k5_and_k5b_take_any_hidden_size(cuda, H, dirs):
     assert torch.isfinite(dxp).all() and torch.isfinite(dw).all()
     assert _rel(dxp.cpu(), dxp_ref) <= K5B_TOL
     assert _rel(dw.cpu(), dw_ref) <= K5B_TOL
+
+
+def _k5b_case(layout, seed):
+    """Projections, W_hh at torch's init bound and a cotangent on the CPU."""
+    g = torch.Generator().manual_seed(seed)
+    xp = torch.randn(layout.xp_size, generator=g) * 2
+    w = pack_recurrent_weights([(torch.rand((4, layout.dirs, 4 * h, h), generator=g) * 2 - 1) / h ** 0.5
+                                for h in layout.hidden])
+    return xp, w, torch.randn(layout.h_size, generator=g)
+
+
+def _k5b_against_plain(cuda, layout, seed):
+    """K5b on the card from K5's own h and c against the grouped plain
+    reverse walk on the CPU from the same h and c, and a second run's bits."""
+    xp, w, dh = _k5b_case(layout, seed)
+    xc, wc, dhc = xp.to(cuda), w.to(cuda), dh.to(cuda)
+    h, c = lstm_recurrence_with_cell(xc, wc, layout)
+    dxp, dw = lstm_recurrence_backward(xc, wc, h, c, dhc, layout)
+    dxp2, dw2 = lstm_recurrence_backward(xc, wc, h, c, dhc, layout)
+    torch.cuda.synchronize()
+    dxp_ref, dw_ref = lstm_recurrence_backward_grouped_plain(xp, w, h.cpu(), c.cpu(), dh, layout)
+    assert torch.isfinite(dxp).all() and torch.isfinite(dw).all()
+    assert _rel(dxp.cpu(), dxp_ref) <= K5B_TOL
+    assert _rel(dw.cpu(), dw_ref) <= K5B_TOL
+    assert torch.equal(dxp, dxp2) and torch.equal(dw, dw2)
+
+
+@pytest.mark.parametrize("dirs", [2, 1], ids=["offline", "realtime"])
+@pytest.mark.parametrize("H", [1, 2, 3, 4, 5, 8, 9, 16])
+def test_k5b_every_group_width(cuda, H, dirs):
+    """K5b's group walk at every group width: GS 1, 2 and 4 with the row
+    loads (H = GS), 4 without them (H = 3), 8 (H = 5, 8) with d(W_hh)
+    summed inside the walk, 16 (H = 9, 16) with its separate ring walk;
+    three buckets whose lengths are longer than, not a multiple of, and
+    shorter than the register ring, at sequence batch 3 (a block's last
+    group partly empty)."""
+    layout = RecurrenceLayout((H, H, H), (203, 64, 3), 3, dirs)
+    assert set(work_items(layout, backward=True)[:, 9].tolist()) == {1 << (H - 1).bit_length()}
+    _k5b_against_plain(cuda, layout, seed=30 + H + dirs)
+
+
+@pytest.mark.parametrize("dirs", [2, 1], ids=["offline", "realtime"])
+@pytest.mark.parametrize("H,held", [(43, True), (86, True), (132, False), (263, False)])
+def test_k5b_wide_buckets(cuda, H, held, dirs):
+    """K5b's block path with W_hh held in shared memory (H = 43, 86: the
+    bark-262 buckets) and read from L2 (H = 132, 263: linear-262), beside a
+    group bucket, against the plain version; the table's choice checked."""
+    layout = RecurrenceLayout((H, 2), (37, 50), 2, dirs)
+    items = work_items(layout, backward=True)
+    assert set(items[items[:, 0] == H][:, 9].tolist()) == {0 if held else -1}
+    _k5b_against_plain(cuda, layout, seed=H + dirs)

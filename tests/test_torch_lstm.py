@@ -165,7 +165,7 @@ def test_work_items_walk_every_sequence_once(scale):
     """K5's and K5b's work tables at the main path's layout (chunk batch 4
     of the default chunk) and the training layout (batch 32 of 2 s),
     offline and realtime: every (bucket, target, direction, b) exactly
-    once, each block within THREADS lanes, K5's blocks longest sequence
+    once, each block within THREADS lanes, the blocks longest sequence
     first, and W_hh held in shared memory exactly where it fits."""
     t = SliCQT(device=DEVICE, scale=scale, fbins=262)
     for batch, length in ((4, 2621440), (32, 2 * 44100)):
@@ -177,8 +177,7 @@ def test_work_items_walk_every_sequence_once(scale):
             for backward in (False, True):
                 items = work_items(layout, backward)
                 assert items.shape[1] == k5.ITEM_FIELDS
-                if not backward:
-                    assert (np.diff(items[:, 1]) <= 0).all()
+                assert (np.diff(items[:, 1]) <= 0).all()
                 for k, (H, n) in enumerate(zip(layout.hidden, layout.frames)):
                     mine = items[items[:, 4] == layout.xp_offsets[k]]
                     assert (mine[:, :7] == [H, n, batch, layout.dirs, layout.xp_offsets[k], layout.h_offsets[k],
@@ -189,13 +188,44 @@ def test_work_items_walk_every_sequence_once(scale):
                     assert (lanes == lanes[0]).all()
                     if H > k5.GROUP_H:
                         assert (mine[:, 8] == 1).all()
-                        held = k5._block_smem(H, False, w_held=True) <= k5.SMEM_LIMIT
-                        assert lanes[0] == (0 if backward or held else -1)
+                        held = k5._block_smem(H, backward, w_held=True) <= k5.SMEM_LIMIT
+                        assert lanes[0] == (0 if held else -1)
                     else:
                         assert lanes[0] == 1 << (H - 1).bit_length()
                         assert (mine[:, 8] * lanes <= k5.THREADS).all()
             if scale == "linear":
                 assert set(hidden) == {263 if realtime else 132}
+
+
+def test_backward_table_holds_w_hh_where_it_fits():
+    """K5b's table: a wide bucket's block holds W_hh in shared memory when
+    K5b's own need (`_block_smem(H, True, w_held=True)`) fits the limit,
+    else reads it from L2; the launch's shared memory is its largest
+    block's; a block that does not fit even without W_hh, or a group whose
+    offsets pass 32 bits, raises. No kernel runs here."""
+    layout = RecurrenceLayout((2, 43, 86, 132, 263), (50, 30, 20, 10, 5), 2, 2)
+    lanes = {}
+    for limit in (k5.SMEM_LIMIT, k5._block_smem(43, True, w_held=True) - 1):
+        items = work_items(layout, backward=True, smem_limit=limit)
+        mode = {int(H): set(items[items[:, 0] == H][:, 9].tolist()) for H in layout.hidden}
+        lanes[limit] = mode
+        for H in (43, 86, 132, 263):
+            held = k5._block_smem(H, True, w_held=True) <= limit
+            assert mode[H] == {0 if held else -1}
+        assert mode[2] == {2}
+        wide = [(H, m == 0) for H, m in zip(items[:, 0], items[:, 9]) if m <= 0]
+        assert k5.smem_bytes(items, backward=True) == max(k5._block_smem(int(H), True, w_held=h) for H, h in wide)
+    assert lanes[k5.SMEM_LIMIT][86] == {0} and lanes[k5.SMEM_LIMIT][132] == {-1}
+    assert lanes[k5._block_smem(43, True, w_held=True) - 1][43] == {-1}
+    # K5 holds W_hh in a smaller layout: at a limit between the two needs, K5 holds it and K5b does not
+    between = k5._block_smem(86, False, w_held=True)
+    for backward, mode in ((False, 0), (True, -1)):
+        items = work_items(layout, backward, between)
+        assert set(items[items[:, 0] == 86][:, 9].tolist()) == {mode}
+    with pytest.raises(ValueError):
+        work_items(layout, backward=True, smem_limit=k5._block_smem(263, True) - 1)
+    with pytest.raises(ValueError):
+        work_items(RecurrenceLayout((1,), (2 ** 29,), 4, 1), backward=True)
 
 
 @pytest.fixture(scope="module")

@@ -28,7 +28,8 @@ their reasons:
   1e-5 of the largest norm;
 * bf16: loss 1e-2 relative (bf16 operands round at other places).
 The step tests run 0.1 s clips (up to 2,640 steps a sequence): the plain
-recurrence walks step by step in Python on the CPU.
+recurrence walks step by step in Python on the CPU. The dropout and
+trainer-CLI checks, whose subjects do not depend on length, run 0.03 s.
 """
 
 import json
@@ -65,6 +66,7 @@ LR, WD = 1e-3, 1e-5
 ADAM_EPS = 1e-8                 # torch's and optax's AdamW default
 BATCH = 2
 LEN = int(0.1 * 44100)
+SHORT_LEN = int(0.03 * 44100)   # 5 slices: for checks whose subject does not depend on the clip's length
 
 
 def _layout(H, dirs):
@@ -78,11 +80,12 @@ def _w_hh(layout, g, dtype):
 
 
 @pytest.mark.parametrize("dirs", [2, 1], ids=["bidirectional", "unidirectional"])
-@pytest.mark.parametrize("H", [1, 9, 43])
+@pytest.mark.parametrize("H", [1, 2, 4, 9, 16, 43, 86])
 def test_grouped_plain_backward_matches_autograd(H, dirs):
     """The grouped reverse walk (d(xp) and d(W_hh^T), packed) and the
     one-bucket one (d(xp), d(W_hh)) against autograd of the grouped plain
-    forward, float64, H on both sides of K5's lane/block split."""
+    forward, float64, H on both sides of K5's lane/block split: at the
+    group widths and wide sizes that the card tests hold K5b to it at."""
     layout = _layout(H, dirs)
     g = torch.Generator().manual_seed(H + dirs)
     xp = (torch.randn(layout.xp_size, generator=g, dtype=torch.float64) * 2).requires_grad_(True)
@@ -172,10 +175,10 @@ def test_batch_norm1d_train_matches_jax():
         np.testing.assert_allclose(rv[t].numpy(), np.asarray(rs["var"]), rtol=0, atol=1e-6)
 
 
-def _mel12_model(realtime=False, amp=False, seed=3, batch=BATCH):
+def _mel12_model(realtime=False, amp=False, seed=3, batch=BATCH, length=LEN):
     """A port LSTM model at mel-12 with seeded weights and BatchNorm,
     whitening and running statistics moved as training moves them."""
-    shapes = SliCQT(device=DEVICE, **MEL12).block_shapes(batch, 2, LEN)
+    shapes = SliCQT(device=DEVICE, **MEL12).block_shapes(batch, 2, length)
     model = Unmix(shapes, realtime=realtime, lstm=True, amp=amp, seed=seed, device=DEVICE)
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
@@ -207,7 +210,7 @@ def test_dropout_semantics(monkeypatch):
     calls = []
     real = lstm_module._dropout
     monkeypatch.setattr(lstm_module, "_dropout", lambda h, gen: calls.append(h.shape) or real(h, gen))
-    shapes, model = _mel12_model(batch=1)
+    shapes, model = _mel12_model(batch=1, length=SHORT_LEN)
     X = [torch.from_numpy(noise(i, s) + 1j * noise(i + 50, s)) for i, s in enumerate(shapes)]
     n_h = sum(4 * s[3] * s[4] * s[0] * blk.dirs * blk.lstm_hidden for s, blk in zip(shapes, model.blocks))
 
@@ -318,7 +321,7 @@ def test_lstm_bf16_loss_matches_jax_amp():
 
 
 TRAIN_ARGS = ["--synthetic-dataset", "--lstm", "--fscale", "mel", "--fbins", "12", "--fmin", "200.0",
-              "--seq-dur", "0.1", "--batch-size", "4", "--debug", "--max-batches-per-epoch", "1",
+              "--seq-dur", str(SHORT_LEN / 44100), "--batch-size", "4", "--debug", "--max-batches-per-epoch", "1",
               "--quiet", "--device", "cpu", "--nb-workers", "0"]
 
 

@@ -3,7 +3,8 @@
 checkout's on one NVIDIA GPU, and the dependent-chain latencies behind
 chip_smoke.py's STEP_CHAIN_CYCLES.
 
-    python3 tools/k5_ab.py [--parent DIR] [--batch N ...] [--backward] [--track] [--latency] [--sass DIR]
+    python3 tools/k5_ab.py [--parent DIR] [--batch N ...] [--backward] [--k2b] [--train] [--walk-only]
+                           [--track] [--latency] [--sass DIR]
 
 chip_smoke.py times this checkout alone; a kernel's gain is read against
 its parent's in one call, since the card's clock and power limit may
@@ -17,14 +18,27 @@ parent, change, change, parent:
     and realtime, with the ns per step of each hidden-size group alone
     (chip_smoke.k5_per_hidden);
   * --backward: chip_smoke's phase k5_backward (K5's train-mode forward
-    and K5b at batch 32 of 2 s, against their plain versions);
+    and K5b at batch 32 of 2 s, against their plain versions, with K5b
+    per hidden-size group alone, chip_smoke.k5b_per_hidden);
+  * --k2b: its phase k2_backward (K2's backward at batch 32 of 2 s,
+    against its plain version and autograd, each pass's registers);
+  * --train: its phases train_steps and lstm_train_steps (13 canonical
+    train steps of the CDAE and of the LSTM variant, batch 32 of 2 s);
+  * --walk-only: K5b per hidden-size group again, from a build of the
+    version's source with K5b's separate d(W_hh) passes cut out, in
+    turns of their own after the others;
   * --track: its phases lstm_track_236s and lstm_realtime_track_236s (the
     LSTM demix of a seeded 236 s track).
---sass DIR writes `cuobjdump -sass` of each version's K5 library there.
+--sass DIR writes `cuobjdump --dump-resource-usage` of each version's K5
+library there, prints ptxas's registers and spills, and the loops of K5b's
+group walk at GS = 1 and 2 compiled alone (their SASS there too).
 --latency times dependent chains on the card in SM cycles (clock64, one
 warp): one instruction each (FFMA, MUFU.EX2, MUFU.RCP, libm's tanhf,
 SHFL), one H = 1 LSTM step with libm's activations, with ex2/rcp ones and
-with the kernel's own row_sum and cell_, eight independent MUFU.EX2, and
+with the kernel's own row_sum and cell_, eight independent MUFU.EX2, K5b's
+chain at H = 1 (its arithmetic as the previous design wrote it, and the kernel's own
+cell_chain_ and rec_contributions: chip_smoke's
+STEP_CHAIN_CYCLES_BACKWARD), and
 the kernel's own group walk at H = 1, 2 and 4 timed inside.
 Prints one JSON object per result, each tagged with its version and turn;
 --out also writes them all to a file.
@@ -94,6 +108,29 @@ __global__ void chain(float* out, long long* cycles, float x0, int n) {
             for (int k = 0; k < 8; ++k) y[k] = ex2_(x + k * 1e-3f) * 0.5f;
             x = ((y[0] + y[1]) + (y[2] + y[3])) + ((y[4] + y[5]) + (y[6] + y[7]));
         }
+        if (OP == 9) {                     // K5b's chain at H = 1, the previous design's: x is dh_rec, c dc_rec
+            const float og = 0.6f, tc = 0.3f, gg = 0.2f, ig = 0.7f, fg = 0.8f, cp = 0.1f, dho = 1e-3f;
+            const float dh = dho + x;
+            const float dc = c + dh * og * (1.f - tc * tc);
+            const float dg0 = dc * gg * ig * (1.f - ig), dg1 = dc * cp * fg * (1.f - fg);
+            const float dg2 = dc * ig * (1.f - gg * gg), dg3 = dh * tc * og * (1.f - og);
+            float s = 0.f;
+            s = fmaf(0.3f, dg0, s);
+            s = fmaf(-0.2f, dg1, s);
+            s = fmaf(0.5f, dg2, s);
+            s = fmaf(0.1f, dg3, s);
+            x = s;
+            c = dc * fg;
+        }
+        if (OP == 10) {                    // K5b's own chain at H = 1: cell_chain_ and rec_contributions, x is dh_rec
+            const float z[4] = {0.3f * S_SIG, 1.1f * S_SIG, -0.2f * S_TANH, 0.6f * S_SIG};
+            const float W[4][1] = {{0.7f * S_SIG}, {-0.4f * S_SIG}, {0.9f * S_TANH}, {0.5f * S_SIG}};
+            const CellFactors a = cell_factors_(z, 0.4f, 0.1f);   // off the chain: the loop hoists it
+            float dg[4], cv[1];
+            cell_chain_(a, 1e-3f + x, c, dg);
+            rec_contributions<1>(W, dg, cv);
+            x = cv[0];
+        }
         if (OP == 7) {                     // the kernel's own step at H = 1 (row_sum and cell_), c as zc
             const float hk[1] = {x};
             const float w[4][1] = {{0.7f * S_SIG}, {-0.4f * S_SIG}, {0.9f * S_TANH}, {0.5f * S_SIG}};
@@ -143,13 +180,67 @@ extern "C" int chain_latency(int op, int n, void* out, void* cycles) {
         case 5: chain<5><<<1, 32>>>(o, c, 0.5f, n); break;
         case 6: chain<6><<<1, 32>>>(o, c, 0.5f, n); break;
         case 7: chain<7><<<1, 32>>>(o, c, 0.5f, n); break;
-        default: chain<8><<<1, 32>>>(o, c, 0.5f, n); break;
+        case 8: chain<8><<<1, 32>>>(o, c, 0.5f, n); break;
+        case 9: chain<9><<<1, 32>>>(o, c, 0.5f, n); break;
+        default: chain<10><<<1, 32>>>(o, c, 0.5f, n); break;
     }
     return (int)cudaGetLastError();
 }
 """
+# K5b's group walk alone at GS = 1 and 2 (H = GS), one kernel each, for its SASS: a version's source as it is
+SASS_PROBE_CU = r"""
+#include "lstm_recurrence.cu"
+__global__ void __launch_bounds__(THREADS) probe_backward_gs1(const float* xp, const float* wT, const float* h,
+        const float* c, const float* dh, float* dxp, float* dw, int frames, int B, int dirs, int n) {
+    group_sequence_backward<1>(xp, wT, h, c, dh, dxp, dw, 0, 1, frames, B, dirs, 0, n);
+}
+__global__ void __launch_bounds__(THREADS) probe_backward_gs2(const float* xp, const float* wT, const float* h,
+        const float* c, const float* dh, float* dxp, float* dw, int frames, int B, int dirs, int n) {
+    group_sequence_backward<2>(xp, wT, h, c, dh, dxp, dw, 0, 2, frames, B, dirs, 0, n);
+}
+"""
+
+
+def sass_loops(sass: str):
+    """Per function of a cuobjdump -sass listing: its instruction count and the lengths (in instructions) of
+    its loops, each a backward branch."""
+    import re
+
+    out, name, count, loops = {}, None, 0, []
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            if name:
+                out[name] = dict(instructions=count, loops=loops)
+            name, count, loops = m.group(1), 0, []
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+        if name and m:
+            count += 1
+            b = re.search(r"BRA (?:`\(\.L_x_\d+\) )?0x([0-9a-f]+)", m.group(2))
+            if b and int(b.group(1), 16) < int(m.group(1), 16):
+                loops.append((int(m.group(1), 16) - int(b.group(1), 16)) // 16 + 1)
+    if name:
+        out[name] = dict(instructions=count, loops=loops)
+    return out
+
+
+def probe_sass(build, version: str, csrc: Path, out_dir: Path):
+    """K5b's group walk at GS = 1 and 2 compiled alone from one version's source: its SASS in out_dir and
+    each probe's loops."""
+    cu = out_dir / f"probe_{version}.cu"
+    cu.write_text(SASS_PROBE_CU)
+    cubin = out_dir / f"probe_{version}.cubin"
+    subprocess.run([build._nvcc(), *build.ARCH_FLAGS, "-std=c++17", "-O3", "-cubin", "-I", str(csrc), "-o", str(cubin),
+                    str(cu)], check=True)
+    cuobjdump = str(Path(build._nvcc()).parent / "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(cubin)], capture_output=True, text=True, check=True).stdout
+    (out_dir / f"k5b_probe_sass_{version}.txt").write_text(sass)
+    return sass_loops(sass)
+
+
 LATENCY_OPS = ["ffma", "ffma+ex2", "ffma+rcp", "ffma+tanhf", "ffma+shfl", "lstm_step_h1_libm", "lstm_step_h1_ex2_rcp",
-               "lstm_step_h1_kernel", "ex2_x8_independent"]
+               "lstm_step_h1_kernel", "ex2_x8_independent", "k5b_step_h1_pr6_arith", "k5b_step_h1_kernel"]
 
 
 def latency(build):
@@ -189,7 +280,28 @@ def latency(build):
     emit(phase="walk_cycles_one_lane", frames=frames, **rows)
 
 
-def turn(root: Path, batches, backward: bool, track: bool):
+def walk_only(root: Path, build):
+    """Build root's K5 library with K5b's separate d(W_hh) passes cut out
+    (the source's K5B_NO_DW_PASS; a source without it, the previous design's, has those
+    passes' loops bounded to nothing) into a directory of its own, and
+    point the package's loader there."""
+    src = (root / "xumx_slicq_torch" / "csrc" / "lstm_recurrence.cu").read_text()
+    out = root / "build" / "k5b_walk_only"
+    out.mkdir(parents=True, exist_ok=True)
+    flags = ["-DK5B_NO_DW_PASS"]
+    if "K5B_NO_DW_PASS" not in src:
+        loop = "for (int64_t v = 1; v < frames; ++v)"
+        cs.check(src.count(loop) == 2, f"walk_only: expected two d(W_hh) loops in {root}")
+        src, flags = src.replace(loop, "for (int64_t v = 1; v < 1; ++v)"), []
+    cu = out / "lstm_recurrence.cu"
+    cu.write_text(src)
+    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, *flags, "-o", str(out / "liblstm_recurrence.so"), str(cu)],
+                   check=True)
+    build.BUILD_DIR = out
+
+
+def turn(root: Path, batches, backward: bool, track: bool, walk: bool = False, k2b: bool = False,
+         train: bool = False):
     """One version's measurements, in this process: the package under root
     first on the path, chip_smoke's phases printing one JSON line each."""
     import numpy as np
@@ -206,10 +318,24 @@ def turn(root: Path, batches, backward: bool, track: bool):
              f"xumx_slicq_torch imported from {xumx_slicq_torch.__file__}, not from {root}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    build.build_all(["lstm_recurrence"])
     dev = torch.device("cuda")
     slicqt = SliCQT(device=dev)
     S, clock = slicqt.n_slices(CHUNK), cs.max_sm_clock_mhz()
+    if walk:           # K5b per hidden size at the training layout, its separate d(W_hh) passes cut out
+        walk_only(root, build)
+        S2 = slicqt.n_slices(int(cs.TRAIN_SECONDS * 44100))
+        for realtime in (False, True):
+            g = torch.Generator(device=dev).manual_seed(1)
+            layout, xp, w = cs.k5_inputs(slicqt, cs.TRAIN_BATCH, S2, realtime, g)
+            dh = torch.randn(layout.h_size, generator=g, device=dev)
+            from xumx_slicq_torch.kernels.lstm_recurrence import lstm_recurrence_with_cell
+            h, c = lstm_recurrence_with_cell(xp, w, layout)
+            cs.phase("k5b_walk_only", mode="realtime" if realtime else "offline", max_sm_clock_mhz=clock,
+                     per_hidden=cs.k5b_per_hidden(layout, xp, w, h, c, dh, clock))
+            del xp, w, dh, h, c
+            torch.cuda.empty_cache()
+        return
+    build.build_all(["lstm_recurrence"])
     for batch in batches:
         for realtime in (False, True):
             layout, xp, w = cs.k5_inputs(slicqt, batch, S, realtime, torch.Generator(device=dev).manual_seed(0))
@@ -220,6 +346,13 @@ def turn(root: Path, batches, backward: bool, track: bool):
             torch.cuda.empty_cache()
     if backward:
         cs.k5_backward(slicqt, torch.Generator(device=dev).manual_seed(1), {})
+    if k2b:
+        cs.k2_backward(slicqt, torch.Generator(device=dev).manual_seed(2), {})
+    if train:          # the kernels' dict takes each backward kernel's launch count
+        for lstm in (False, True):
+            cs.train_steps(dev, slicqt, {k: {} for k in ("synth_assembly_backward", "wiener_em_backward",
+                                                        "lstm_recurrence_backward")}, lstm=lstm)
+            torch.cuda.empty_cache()
     if track:
         audio = (np.random.default_rng(0).standard_normal((1, 2, cs.TRACK_SECONDS * 44100)) * 0.1).astype(np.float32)
         batch = next(b for b in Separator._CHUNK_BATCH_BUCKETS if b * CHUNK >= audio.shape[-1])
@@ -236,6 +369,10 @@ def main():
     ap.add_argument("--batch", type=int, nargs="+", default=[4], help="chunk batches of the K5 layouts")
     ap.add_argument("--backward", action="store_true", help="also chip_smoke's phase k5_backward")
     ap.add_argument("--track", action="store_true", help="also the LSTM demix of a seeded 236 s track")
+    ap.add_argument("--k2b", action="store_true", help="also chip_smoke's phase k2_backward (K2's backward)")
+    ap.add_argument("--train", action="store_true", help="also chip_smoke's phases train_steps, lstm_train_steps")
+    ap.add_argument("--walk-only", action="store_true",
+                    help="also K5b per hidden size with its separate d(W_hh) passes cut out")
     ap.add_argument("--latency", action="store_true", help="time dependent chains of instructions")
     ap.add_argument("--sass", help="directory for cuobjdump -sass of each version's K5 library")
     ap.add_argument("--out", help="write every result to this JSON file too")
@@ -244,7 +381,7 @@ def main():
     if not torch.cuda.is_available():
         cs.fail("torch.cuda.is_available() is False: this script needs an NVIDIA GPU")
     if args.turn:
-        return turn(Path(args.turn), args.batch, args.backward, args.track)
+        return turn(Path(args.turn), args.batch, args.backward, args.track, args.walk_only, args.k2b, args.train)
     sys.path.insert(0, str(ROOT))
     from xumx_slicq_torch.kernels import build
 
@@ -258,9 +395,11 @@ def main():
         roots["parent"] = Path(args.parent).resolve()
     order = ["parent", "change", "change", "parent"] if args.parent else ["change", "change"]
     flags = [*(["--backward"] if args.backward else []), *(["--track"] if args.track else []),
+             *(["--k2b"] if args.k2b else []), *(["--train"] if args.train else []),
              "--batch", *map(str, args.batch)]
-    for n, version in enumerate(order):
-        run = subprocess.run([sys.executable, __file__, "--turn", str(roots[version]), *flags],
+    turns = [(v, flags) for v in order] + [(v, ["--walk-only"]) for v in order if args.walk_only]
+    for n, (version, fl) in enumerate(turns):
+        run = subprocess.run([sys.executable, __file__, "--turn", str(roots[version]), *fl],
                              capture_output=True, text=True)
         lines = [json.loads(x) for x in run.stdout.splitlines() if x.startswith("{")]
         for fields in lines:
@@ -270,9 +409,16 @@ def main():
         if args.sass and version not in order[:n]:
             lib = roots[version] / "build" / "xumx_slicq_torch" / "liblstm_recurrence.so"
             cuobjdump = str(Path(build._nvcc()).parent / "cuobjdump")
-            sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True, check=True).stdout
             Path(args.sass).mkdir(parents=True, exist_ok=True)
-            (Path(args.sass) / f"k5_sass_{version}.txt").write_text(sass)
+            text = subprocess.run([cuobjdump, "--dump-resource-usage", str(lib)], capture_output=True, text=True,
+                                  check=True).stdout
+            (Path(args.sass) / f"k5_resources_{version}.txt").write_text(text)
+            src = roots[version] / "xumx_slicq_torch" / "csrc" / "lstm_recurrence.cu"
+            ptxas = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o", "/dev/null", str(src)],
+                                   capture_output=True, text=True)
+            emit(version=version, phase="k5_resources", ptxas=(ptxas.stdout + ptxas.stderr).splitlines(),
+                 resources=[x.strip() for x in text.splitlines() if "REG" in x or "Function" in x],
+                 k5b_group_walk_sass=probe_sass(build, version, src.parent, Path(args.sass)))
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(RESULTS, indent=1))

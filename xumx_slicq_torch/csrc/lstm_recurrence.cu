@@ -127,6 +127,29 @@ __device__ __forceinline__ float row_sum(float a, float s, const float (&hk)[K],
     }
 }
 
+// A step's four projections of unit j from the row at p (4H floats, gate-major). ROW (H == GS in {2, 4}):
+// the lane reads the whole row in 16-byte loads and picks its unit's four; GS == 1 reads its one float4.
+// Otherwise four loads, zeros where the lane is not active.
+template <int GS, bool ROW>
+__device__ __forceinline__ void load_projections(const float* p, int j, int H, bool active, float (&r)[4]) {
+    if (GS == 1) {
+        const float4 f = __ldg(reinterpret_cast<const float4*>(p));
+        r[0] = f.x, r[1] = f.y, r[2] = f.z, r[3] = f.w;
+    } else if (ROW && GS == 2) {
+        const float4 a0 = __ldg(reinterpret_cast<const float4*>(p)), a1 = __ldg(reinterpret_cast<const float4*>(p) + 1);
+        r[0] = j ? a0.y : a0.x, r[1] = j ? a0.w : a0.z, r[2] = j ? a1.y : a1.x, r[3] = j ? a1.w : a1.z;
+    } else if (ROW) {
+#pragma unroll
+        for (int gate = 0; gate < 4; ++gate) {
+            const float4 a = __ldg(reinterpret_cast<const float4*>(p) + gate);
+            r[gate] = j == 0 ? a.x : j == 1 ? a.y : j == 2 ? a.z : a.w;
+        }
+    } else {
+#pragma unroll
+        for (int gate = 0; gate < 4; ++gate) r[gate] = active ? __ldg(p + gate * H + j) : 0.f;
+    }
+}
+
 // A group of GS lanes (the power of two >= H) walks sequence q = first + slot of a bucket: lane j owns unit
 // j, its four rows of W_hh (scaled) and its cell. Lanes past H, or of a group past the last sequence,
 // compute along (the shuffles need the whole warp) and neither load nor store. ROW (H == GS in {2, 4}):
@@ -160,25 +183,7 @@ __device__ void group_sequence(const float* __restrict__ xp, const float* __rest
             W[gate][k] = (active && k < H)
                 ? gate_scale(gate) * __ldg(wT + (int64_t)td * H * G + (int64_t)k * G + gate * H + j) : 0.f;
 
-    // a step's four projections of unit j, from the row at p
-    auto load = [&](const float* p, float (&r)[4]) {
-        if (GS == 1) {
-            const float4 f = __ldg(reinterpret_cast<const float4*>(p));
-            r[0] = f.x, r[1] = f.y, r[2] = f.z, r[3] = f.w;
-        } else if (ROW && GS == 2) {
-            const float4 a0 = __ldg(reinterpret_cast<const float4*>(p)), a1 = __ldg(reinterpret_cast<const float4*>(p) + 1);
-            r[0] = j ? a0.y : a0.x, r[1] = j ? a0.w : a0.z, r[2] = j ? a1.y : a1.x, r[3] = j ? a1.w : a1.z;
-        } else if (ROW) {
-#pragma unroll
-            for (int gate = 0; gate < 4; ++gate) {
-                const float4 a = __ldg(reinterpret_cast<const float4*>(p) + gate);
-                r[gate] = j == 0 ? a.x : j == 1 ? a.y : j == 2 ? a.z : a.w;
-            }
-        } else {
-#pragma unroll
-            for (int gate = 0; gate < 4; ++gate) r[gate] = active ? __ldg(p + gate * H + j) : 0.f;
-        }
-    };
+    auto load = [&](const float* p, float (&r)[4]) { load_projections<GS, ROW>(p, j, H, active, r); };
     float ring[P][4];
 #pragma unroll
     for (int v = 0; v < P; ++v) {
@@ -221,6 +226,42 @@ __device__ void group_sequence(const float* __restrict__ xp, const float* __rest
 // of 8 units fall on 8 different bank groups.
 __host__ __device__ constexpr int padded_h(int H) { return (H + 3) & ~3; }
 __host__ __device__ constexpr int unit_stride(int Hp) { return 4 * Hp + 4; }
+
+// Unit j's four gate row sums against h (Hp floats in shared memory, zero past H), k ascending from zero in
+// 16-byte pieces: W_hh from shared memory (rows of unit j at wj, unit_stride layout) or from W^T in L2.
+// K5b recomputes K5's gates with this same function.
+template <bool W_SMEM>
+__device__ __forceinline__ void block_row_sums(const float* wj, const float* w, int j, int H, int Hp,
+                                               const float* hcur, float (&acc)[4]) {
+    const int G = 4 * H;
+    const float4* h4 = reinterpret_cast<const float4*>(hcur);
+#pragma unroll
+    for (int gate = 0; gate < 4; ++gate) acc[gate] = 0.f;
+#pragma unroll 4
+    for (int k4 = 0; k4 < Hp / 4; ++k4) {
+        const float4 hv = h4[k4];
+        float4 wv[4];
+#pragma unroll
+        for (int gate = 0; gate < 4; ++gate) {
+            if (W_SMEM) {
+                wv[gate] = reinterpret_cast<const float4*>(wj + gate * Hp)[k4];
+            } else {
+                const float* wk = w + (int64_t)(4 * k4) * G + gate * H + j;
+                wv[gate].x = __ldg(wk);
+                wv[gate].y = 4 * k4 + 1 < H ? __ldg(wk + G) : 0.f;
+                wv[gate].z = 4 * k4 + 2 < H ? __ldg(wk + 2 * G) : 0.f;
+                wv[gate].w = 4 * k4 + 3 < H ? __ldg(wk + 3 * G) : 0.f;
+            }
+        }
+#pragma unroll
+        for (int gate = 0; gate < 4; ++gate) {
+            acc[gate] = fmaf(hv.x, wv[gate].x, acc[gate]);
+            acc[gate] = fmaf(hv.y, wv[gate].y, acc[gate]);
+            acc[gate] = fmaf(hv.z, wv[gate].z, acc[gate]);
+            acc[gate] = fmaf(hv.w, wv[gate].w, acc[gate]);
+        }
+    }
+}
 
 // A block walks sequence q of a bucket with hidden size H > 16: thread tid owns units tid, tid +
 // THREADS, ...: all four gate rows and the cell of each. Per step and unit the four row sums run over
@@ -269,33 +310,8 @@ __device__ void block_sequence(const float* __restrict__ xp, const float* __rest
 
     // unit j's step: its four row sums against h (hcur) and projections a, its cell zc; returns h
     auto unit = [&](int j, const float* hcur, const float (&a)[4], float& zc) {
-        float acc[4] = {0.f, 0.f, 0.f, 0.f};
-        const float4* h4 = reinterpret_cast<const float4*>(hcur);
-        const float* wj = ws + j * WS;
-#pragma unroll 4
-        for (int k4 = 0; k4 < Hp / 4; ++k4) {
-            const float4 hv = h4[k4];
-            float4 wv[4];
-#pragma unroll
-            for (int gate = 0; gate < 4; ++gate) {
-                if (W_SMEM) {
-                    wv[gate] = reinterpret_cast<const float4*>(wj + gate * Hp)[k4];
-                } else {
-                    const float* wk = w + (int64_t)(4 * k4) * G + gate * H + j;
-                    wv[gate].x = __ldg(wk);
-                    wv[gate].y = 4 * k4 + 1 < H ? __ldg(wk + G) : 0.f;
-                    wv[gate].z = 4 * k4 + 2 < H ? __ldg(wk + 2 * G) : 0.f;
-                    wv[gate].w = 4 * k4 + 3 < H ? __ldg(wk + 3 * G) : 0.f;
-                }
-            }
-#pragma unroll
-            for (int gate = 0; gate < 4; ++gate) {
-                acc[gate] = fmaf(hv.x, wv[gate].x, acc[gate]);
-                acc[gate] = fmaf(hv.y, wv[gate].y, acc[gate]);
-                acc[gate] = fmaf(hv.z, wv[gate].z, acc[gate]);
-                acc[gate] = fmaf(hv.w, wv[gate].w, acc[gate]);
-            }
-        }
+        float acc[4];
+        block_row_sums<W_SMEM>(ws + j * WS, w, j, H, Hp, hcur, acc);
         float z[4];
 #pragma unroll
         for (int gate = 0; gate < 4; ++gate) z[gate] = (a[gate] + acc[gate]) * gate_scale(gate);
@@ -377,44 +393,129 @@ lstm_recurrence_kernel(const float* __restrict__ xp, const float* __restrict__ w
 //   d(xp)[s] = (dc g i(1-i), dc c_prev f(1-f), dc i (1-g^2), dh tc o(1-o))
 //   dh_rec = W_hh^T d(xp)[s];  dc_rec = dc f
 //
-// Layouts as the forward's; c and dh packed like h, d(xp) like xp. After
-// its walk each sequence also sums d(W_hh^T) = sum over steps of h_prev (x)
-// d(xp) for itself, into its row b of a (B, W size) buffer of partials that
-// the wrapper sums over b in a fixed order (no atomics: two runs give
-// bit-equal gradients). Its weights are dead by then, so the sums add no
-// registers to the walk.
-// Bound: the serial chain again, now the W_hh^T matvec, dh_rec_j =
-// sum_r W[r][j] d(xp)[r] over all 4H gate rows, then the cell's few
-// products. The gate recompute reads only saved values, so it is off the
-// chain. Bytes: xp, h, c and dh read, d(xp) and the partials written; the
-// pass for d(W_hh) reads d(xp) and h again, from L2 mostly.
-// The gates are recomputed with the forward's activations (ex2 and rcp)
-// and its order of sums (row_sum for H <= 16, k ascending then the
-// scale for the wide buckets), so they are the forward's bit for bit;
-// tanh(c) is taken from the saved c.
-// Design: the forward's split, with its own work table (a group of GS
-// lanes per sequence, GS the power of two >= H, for H <= 16).
-//   * H <= 16: lane j owns unit j: its four rows of W_hh (scaled, for the
-//     recompute) and its column of W_hh (the 4H-long row j of the packed
-//     W^T, for dh_rec), both in registers; h_prev and each lane's four gate
-//     gradients broadcast by shuffles. Loads run one step ahead in
-//     registers and further ahead into L2. d(W_hh): lane j sums its four
-//     rows against h_prev, broadcast by shuffles, 4 x GS sums in registers.
-//   * H > 16: a block per sequence: gate rows recomputed up to ROWS a
-//     thread in one pass over h_prev (tiles of rows for any 4H), the cells
-//     in threads j, j + THREADS, ... < H, the gradients of the 4H rows in
-//     shared memory (dynamic, 10H floats), and dh_rec with each warp taking
-//     units in turn, its lanes splitting the 4H rows of W^T row j
-//     (coalesced) and reducing by shuffles. Two barriers a step. d(W_hh):
-//     after a barrier, thread r sums its gate rows against KC columns of
-//     h_prev at a time.
+// and d(W_hh^T) = sum over steps of h_prev (x) d(xp). Layouts as the
+// forward's; c and dh packed like h, d(xp) like xp. Each sequence sums its
+// own d(W_hh^T) into its row b of a (B, W size) buffer of partials that the
+// wrapper sums over b in a fixed order (no atomics: two runs give bit-equal
+// gradients).
+// The gates are recomputed with the forward's activations (ex2 and rcp) and
+// its sums (row_sum for H <= 16, block_row_sums for the wide buckets), so
+// they are the forward's bit for bit; tanh(c) is taken from the saved c.
+// Bound: bytes (xp, h, c, dh read, d(xp) written: 2.19 GB a layer at batch
+// 32 of 2 s, 0.65 ms); a step's dependent chain (dh, dc, the gate
+// gradients, dh_rec) is 30 cycles at H = 1 (clock64 on an H100), far under
+// a step's issue and the layer's blocks' occupancy of the SMs, which set it:
+// this design takes 1.56 / 2.81 ms a layer offline / realtime there, the
+// realtime one held to one block an SM by W_hh of its H = 86 bucket.
+// The previous design took 5.06 / 6.02 ms: its group walk loaded one step ahead, so a step
+// waited on device memory (~370 ns a step at H = 1), then took a second
+// walk over every frame for d(W_hh) (~150 ns a step, no lookahead); its
+// wide blocks read W^T from L2 twice a step behind two barriers (H = 43:
+// 8.3 us a step, H = 86: 14.8 us); and the kernel held 255 registers with
+// spills, two blocks an SM, so its 616-648 blocks ran in ~2.5 waves.
+// Design:
+//   * H <= 16: a group of GS lanes per sequence as in K5, lane j owning
+//     unit j with its four rows of W_hh scaled as K5 scales them. A P-step
+//     register ring holds each step's projections, dh, c_prev and h_prev;
+//     loads are clamped to the walk's last step, never skipped, and an L2
+//     prefetch runs further ahead; offsets are 32-bit. dh_rec needs
+//     column j of W_hh, which lies in the other lanes' rows: lane m forms
+//     its contributions to every unit k from its own rows (4 GS FMAs with
+//     the gate gradients divided by the rows' scales) and the group sums
+//     them with a reduce-scatter of GS - 1 shuffles, in place of 4 GS
+//     shuffles and a held transposed copy. d(W_hh) is summed inside the
+//     walk from the h_prev the recompute has shuffled already (4 GS
+//     registers), but for GS = 16 in the build held to 168 registers,
+//     which sums it in a second ring walk. Each step forms the next
+//     step's gates and factors (ten MUFU operations) beside its own
+//     dependent chain, so that their latencies overlap.
+//   * H > 16: a block per sequence, thread j owning unit j (and j + 128,
+//     ... for H > 128), all four of its gates, so the cell's backward needs
+//     no exchange. W_hh is held in shared memory in K5's layout where it
+//     fits (127 KB at H = 86); the recompute reads unit j's rows 16 bytes
+//     at a time, dh_rec its column (conflict-free: consecutive units,
+//     consecutive words). h_prev is staged a step ahead and the gate
+//     gradients exchanged through double buffers: one barrier a step.
+//     Without room (H = 132, 263 at linear-262) W^T is read from L2, dh_rec
+//     a warp per unit across the row (coalesced). d(W_hh) follows the walk
+//     as a pass over the sequence's d(xp), with h_prev staged in the shared
+//     memory W_hh leaves (from L2 without it).
+//   * Launch bounds by table: where three blocks' shared memory fits an SM,
+//     a build held to 168 registers (three blocks an SM); else, W_hh held
+//     for a wide bucket leaving one block an SM, the build with 255.
+// K5B_NO_DW_PASS (defined only by the timing builds of chip_smoke.py and tools/k5_ab.py) leaves the
+// separate d(W_hh) passes out.
+
+constexpr float INV_S_SIG = 1.f / S_SIG, INV_S_TANH = 1.f / S_TANH;
+
+// What one unit's backward step needs beside the carried dh_rec and dc_rec, from its recomputed gate sums z
+// (in the rows' scales) and its cells c and c_prev: dg = (dc g[0], dc g[1], dc g[2], dh g[3]) with
+// dc = dc_rec + dh kd, then dc_rec = dc f. None of it waits on the previous step.
+struct CellFactors {
+    float g[4], kd, f;
+};
+
+__device__ __forceinline__ CellFactors cell_factors_(const float (&z)[4], float c, float cp) {
+    const float ig = logistic_(z[0]), fg = logistic_(z[1]), og = logistic_(z[3]);
+    const float gg = fmaf(logistic_(z[2]), 2.f, -1.f);
+    const float tc = fmaf(logistic_(c * S_TANH), 2.f, -1.f);
+    CellFactors a;
+    a.g[0] = gg * ig * (1.f - ig);
+    a.g[1] = cp * fg * (1.f - fg);
+    a.g[2] = ig * (1.f - gg * gg);
+    a.g[3] = tc * og * (1.f - og);
+    a.kd = og * (1.f - tc * tc);
+    a.f = fg;
+    return a;
+}
+
+// The step's part on the dependent chain: dh = dh_out + dh_rec in, the gate gradients dg out, dc_rec carried.
+__device__ __forceinline__ void cell_chain_(const CellFactors& a, float dh, float& dc_rec, float (&dg)[4]) {
+    const float dc = fmaf(dh, a.kd, dc_rec);
+    dg[0] = dc * a.g[0];
+    dg[1] = dc * a.g[1];
+    dg[2] = dc * a.g[2];
+    dg[3] = dh * a.g[3];
+    dc_rec = dc * a.f;
+}
+
+// Lane m's contributions to dh_rec of the group's units k: sum over gates of W_hh[gate H + m][k] dg_gate,
+// from the lane's scaled rows W (W[gate][k] = s_gate W_hh[gate H + m][k]).
+template <int GS>
+__device__ __forceinline__ void rec_contributions(const float (&W)[4][GS], const float (&dg)[4], float (&cv)[GS]) {
+    const float e0 = dg[0] * INV_S_SIG, e1 = dg[1] * INV_S_SIG, e2 = dg[2] * INV_S_TANH, e3 = dg[3] * INV_S_SIG;
+#pragma unroll
+    for (int k = 0; k < GS; ++k) cv[k] = fmaf(W[0][k], e0, W[1][k] * e1) + fmaf(W[2][k], e2, W[3][k] * e3);
+}
+
+// The group's sum of cv over its lanes, element j to lane j: recursive halving, GS - 1 shuffles a lane.
+template <int GS>
+__device__ __forceinline__ float reduce_scatter(float (&cv)[GS], int j) {
+#pragma unroll
+    for (int o = GS / 2; o >= 1; o /= 2) {
+        const bool up = j & o;
+#pragma unroll
+        for (int i = 0; i < o; ++i) {
+            const float send = up ? cv[i] : cv[i + o];
+            cv[i] = (up ? cv[i + o] : cv[i]) + __shfl_xor_sync(0xffffffffu, send, o);
+        }
+    }
+    return cv[0];
+}
 
 template <int GS>
+__host__ __device__ constexpr int backward_ring() { return GS >= 8 ? 4 : 8; }   // steps a group walk holds ahead
+
+// A group of GS lanes walks sequence q = first + slot backward (lanes as in group_sequence). Walk index i
+// counts the backward's steps: forward step u = frames - 1 - i, at position p0 + u * step.
+template <int GS, bool ROW = (GS == 2), int FUSED_MAX = 16>
 __device__ void group_sequence_backward(const float* __restrict__ xp, const float* __restrict__ wT,
                                         const float* __restrict__ hseq, const float* __restrict__ cseq,
                                         const float* __restrict__ dhseq, float* __restrict__ dxp,
-                                        float* __restrict__ dw, int64_t wsize, int H, int64_t frames, int B,
+                                        float* __restrict__ dw, int64_t wsize, int H, int frames, int B,
                                         int dirs, int first, int n) {
+    constexpr int P = backward_ring<GS>();
+    constexpr bool FUSED = GS <= FUSED_MAX;               // d(W_hh) summed inside the walk: 4 GS registers
     const int j = threadIdx.x % GS;
     const int slot = threadIdx.x / GS;
     if ((int)(threadIdx.x & ~31u) / GS >= n) return;
@@ -422,223 +523,295 @@ __device__ void group_sequence_backward(const float* __restrict__ xp, const floa
     const int q = first + (slot < n ? slot : 0);
     const int G = 4 * H;
     const int b = q % B, td = q / B, d = td % dirs, t = td / dirs;
-    const int64_t xoff = (int64_t)td * frames * B * G + (int64_t)b * G + j;
-    const float* x = xp + xoff;
-    float* dx = dxp + xoff;
-    const int64_t xstride = (int64_t)B * G;
-    const int64_t hoff = (int64_t)t * frames * B * dirs * H + (int64_t)b * dirs * H + d * H + j;
-    const float* hp_ = hseq + hoff;
-    const float* cp_ = cseq + hoff;
-    const float* dh_ = dhseq + hoff;
-    const int64_t hstride = (int64_t)B * dirs * H;
-    const float* w = wT + (int64_t)td * H * G;
+    // offsets from the walk's first position in 32 bits (the wrapper checks the range)
+    const int xrow = B * G, hrow = B * dirs * H;
+    const int xstep = d ? -xrow : xrow, hstep = d ? -hrow : hrow;
+    const int p0 = d ? frames - 1 : 0;
+    const int64_t xbase = ((int64_t)td * frames + p0) * xrow + (int64_t)b * G;
+    const float* row = xp + xbase;
+    float* drow = dxp + xbase;
+    const int64_t hbase = ((int64_t)t * frames + p0) * hrow + (int64_t)b * dirs * H + d * H + j;
+    const float* hs = hseq + hbase;
+    const float* cs = cseq + hbase;
+    const float* dhs = dhseq + hbase;
 
-    float W[4][GS], WT[4][GS];           // row gate*H + j of W_hh, scaled; column j of W_hh (row j of W^T)
+    float W[4][GS];                      // rows gate H + j of W_hh, scaled as K5 scales them
 #pragma unroll
     for (int gate = 0; gate < 4; ++gate)
-#pragma unroll
-        for (int k = 0; k < GS; ++k) {
-            W[gate][k] = (active && k < H) ? gate_scale(gate) * __ldg(w + (int64_t)k * G + gate * H + j) : 0.f;
-            WT[gate][k] = (active && k < H) ? __ldg(w + (int64_t)j * G + gate * H + k) : 0.f;
-        }
-
-    // walk step u sits at position pos(u); the backward takes u from frames - 1 down
-    auto pos = [&](int64_t u) { return d ? frames - 1 - u : u; };
-    int64_t u = frames - 1;
-    float a[4], dho = 0.f, cc = 0.f, cp = 0.f, hp = 0.f;
-#pragma unroll
-    for (int gate = 0; gate < 4; ++gate) a[gate] = active ? __ldg(x + pos(u) * xstride + gate * H) : 0.f;
-    if (active) {
-        dho = __ldg(dh_ + pos(u) * hstride);
-        cc = __ldg(cp_ + pos(u) * hstride);
-        if (u > 0) {
-            cp = __ldg(cp_ + pos(u - 1) * hstride);
-            hp = __ldg(hp_ + pos(u - 1) * hstride);
-        }
-    }
-    float dh_rec = 0.f, dc_rec = 0.f;
-    for (; u >= 0; --u) {
-        // step u - 1's inputs, loaded while step u computes
-        float na[4] = {0.f, 0.f, 0.f, 0.f}, ndh = 0.f, nc = 0.f, nh = 0.f;
-        if (active && u >= 1) {
-            const int64_t p1 = pos(u - 1);
-#pragma unroll
-            for (int gate = 0; gate < 4; ++gate) na[gate] = __ldg(x + p1 * xstride + gate * H);
-            ndh = __ldg(dh_ + p1 * hstride);
-            if (u >= 2) {
-                nc = __ldg(cp_ + pos(u - 2) * hstride);
-                nh = __ldg(hp_ + pos(u - 2) * hstride);
-            }
-            if (u - 1 - AHEAD >= 0) {
-                const int64_t pf = pos(u - 1 - AHEAD);
-#pragma unroll
-                for (int gate = 0; gate < 4; ++gate) prefetch_l2(x + pf * xstride + gate * H);
-                prefetch_l2(dh_ + pf * hstride);
-                prefetch_l2(cp_ + pf * hstride);
-                prefetch_l2(hp_ + pf * hstride);
-            }
-        }
-        // the forward's gates, recomputed with its activations and row_sum's sums (each h_k shuffled once
-        // for the four rows: no array of h held)
-        float z[4], z1[4];
-#pragma unroll
-        for (int gate = 0; gate < 4; ++gate) z[gate] = a[gate] * gate_scale(gate), z1[gate] = 0.f;
-#pragma unroll
-        for (int k = 0; k < GS; ++k) {
-            const float hk = GS == 1 ? hp : __shfl_sync(0xffffffffu, hp, k, GS);
-#pragma unroll
-            for (int gate = 0; gate < 4; ++gate) {
-                if (GS >= 8 && (k & 1)) z1[gate] = fmaf(hk, W[gate][k], z1[gate]);
-                else z[gate] = fmaf(hk, W[gate][k], z[gate]);
-            }
-        }
-        if (GS >= 8)
-#pragma unroll
-            for (int gate = 0; gate < 4; ++gate) z[gate] += z1[gate];
-        const float ig = logistic_(z[0]), fg = logistic_(z[1]), og = logistic_(z[3]);
-        const float gg = fmaf(logistic_(z[2]), 2.f, -1.f);
-        const float tc = fmaf(logistic_(cc * S_TANH), 2.f, -1.f);
-        const float dh = dho + dh_rec;
-        const float dc = dc_rec + dh * og * (1.f - tc * tc);
-        float dg[4];
-        dg[0] = dc * gg * ig * (1.f - ig);
-        dg[1] = dc * cp * fg * (1.f - fg);
-        dg[2] = dc * ig * (1.f - gg * gg);
-        dg[3] = dh * tc * og * (1.f - og);
-        if (active) {
-            const int64_t p = pos(u);
-#pragma unroll
-            for (int gate = 0; gate < 4; ++gate) dx[p * xstride + gate * H] = dg[gate];
-        }
-        // dh_rec_j = sum over the group's lanes k and gates of W[gate H + k][j] dg_gate(k)
-        float s = 0.f;
 #pragma unroll
         for (int k = 0; k < GS; ++k)
+            W[gate][k] = (active && k < H)
+                ? gate_scale(gate) * __ldg(wT + (int64_t)td * H * G + (int64_t)k * G + gate * H + j) : 0.f;
+
+    // walk index i's inputs: projections, dh, c_prev, h_prev; with `clamp`, indices past the walk's last
+    // step load that step (the main rounds never reach it and skip the clamps)
+    auto load = [&](int i, float (&r)[7], bool clamp) {
+        const int u = frames - 1 - (clamp ? min(i, frames - 1) : i), up = clamp ? max(u - 1, 0) : u - 1;
+        float x4[4];
+        load_projections<GS, ROW>(row + u * xstep, j, H, active, x4);
+#pragma unroll
+        for (int gate = 0; gate < 4; ++gate) r[gate] = x4[gate];
+        r[4] = active ? __ldg(dhs + u * hstep) : 0.f;
+        const float cpv = active ? __ldg(cs + up * hstep) : 0.f, hpv = active ? __ldg(hs + up * hstep) : 0.f;
+        r[5] = (!clamp || u > 0) ? cpv : 0.f;                  // unclamped rounds stop at u = 1
+        r[6] = (!clamp || u > 0) ? hpv : 0.f;
+        prefetch_l2(row + (frames - 1 - min(i + AHEAD, frames - 1)) * xstep);
+    };
+    float ring[P][7];
+#pragma unroll
+    for (int v = 0; v < P; ++v) load(v, ring[v], true);
+    float dh_rec = 0.f, dc_rec = 0.f;
+    float acc[4][FUSED ? GS : 1];
+    if (FUSED)
+#pragma unroll
+        for (int gate = 0; gate < 4; ++gate)
+#pragma unroll
+            for (int k = 0; k < GS; ++k) acc[gate][FUSED ? k : 0] = 0.f;
+
+    // A step in two halves: prep forms from the ring what does not wait on dh_rec (the recomputed gates, the
+    // gradient's factors, the shuffled h_prev that d(W_hh) takes), chain carries dh_rec and dc_rec. Each
+    // step preps the next one beside its own chain, so that the next step's activations (ten MUFU
+    // operations) overlap this step's dependent chain.
+    struct Prep {
+        CellFactors a;
+        float dho, hk[FUSED ? GS : 1];
+    };
+    auto prep = [&](const float (&r)[7], float c, Prep& q) {
+        float hk[GS];
+#pragma unroll
+        for (int k = 0; k < GS; ++k) hk[k] = GS == 1 ? r[6] : (k < H ? __shfl_sync(0xffffffffu, r[6], k, GS) : 0.f);
+        float z[4];
+#pragma unroll
+        for (int gate = 0; gate < 4; ++gate) z[gate] = row_sum<GS>(r[gate], gate_scale(gate), hk, W[gate]);
+        q.a = cell_factors_(z, c, r[5]);
+        q.dho = r[4];
+        if (FUSED)
+#pragma unroll
+            for (int k = 0; k < GS; ++k) q.hk[FUSED ? k : 0] = hk[k];
+    };
+    Prep cur, next;
+    prep(ring[0], active ? __ldg(cs + (frames - 1) * hstep) : 0.f, cur);
+
+    // step i from cur, with the ring slot v it came from (its c_prev is the next step's c) and slot w of step
+    // i + 1; slot v then takes step i + P
+    auto step = [&](int v, int w, int i, bool clamp) {
+        const int u = frames - 1 - i;
+        prep(ring[w], ring[v][5], next);
+        float dg[4];
+        cell_chain_(cur.a, cur.dho + dh_rec, dc_rec, dg);
+        if (active) {
+            float* o = drow + u * xstep;
+            if (GS == 1) *reinterpret_cast<float4*>(o) = make_float4(dg[0], dg[1], dg[2], dg[3]);
+            else
+#pragma unroll
+                for (int gate = 0; gate < 4; ++gate) o[gate * H + j] = dg[gate];
+        }
+        if (FUSED)
 #pragma unroll
             for (int gate = 0; gate < 4; ++gate)
-                s = fmaf(WT[gate][k], GS == 1 ? dg[gate] : __shfl_sync(0xffffffffu, dg[gate], k, GS), s);
-        dh_rec = s;
-        dc_rec = dc * fg;
 #pragma unroll
-        for (int gate = 0; gate < 4; ++gate) a[gate] = na[gate];
-        dho = ndh;
-        cc = cp;
-        cp = nc;
-        hp = nh;
+                for (int k = 0; k < GS; ++k)
+                    acc[gate][FUSED ? k : 0] = fmaf(dg[gate], cur.hk[FUSED ? k : 0], acc[gate][FUSED ? k : 0]);
+        float cv[GS];
+        rec_contributions<GS>(W, dg, cv);
+        dh_rec = reduce_scatter<GS>(cv, j);
+        load(i + P, ring[v], clamp);
+        cur = next;
+    };
+    int i0 = 0;
+    for (; i0 + 2 * P < frames; i0 += P)                 // whole rounds whose loads stay in the walk
+#pragma unroll
+        for (int v = 0; v < P; ++v) step(v, (v + 1) % P, i0 + v, false);
+    for (; i0 + P <= frames; i0 += P)                    // whole rounds, loads clamped
+#pragma unroll
+        for (int v = 0; v < P; ++v) step(v, (v + 1) % P, i0 + v, true);
+#pragma unroll
+    for (int v = 0; v < P; ++v)                           // the rest
+        if (i0 + v < frames) step(v, (v + 1) % P, i0 + v, true);
+
+    float* o = dw + (int64_t)b * wsize + (int64_t)td * H * G + j;
+    if (FUSED) {
+        if (active)
+#pragma unroll
+            for (int k = 0; k < GS; ++k)
+                if (k < H)
+#pragma unroll
+                    for (int gate = 0; gate < 4; ++gate) o[(int64_t)k * G + gate * H] = acc[gate][FUSED ? k : 0];
+        return;
     }
-    // d(W_hh^T)[k][gate H + j] of this sequence: sum over walk steps u >= 1 of d(xp)[u] h_k[u - 1],
-    // d(xp) as this lane wrote it above (plain loads: written in this kernel)
-    float acc[4][GS];
+#ifndef K5B_NO_DW_PASS
+    // d(W_hh^T)[k][gate H + j] of this sequence, a second ring walk over the d(xp) this lane wrote (plain
+    // loads: written in this kernel) and h_prev: sum over forward steps u >= 1 of d(xp)[u] h_k[u - 1]
+    float dacc[4][GS];
 #pragma unroll
     for (int gate = 0; gate < 4; ++gate)
 #pragma unroll
-        for (int k = 0; k < GS; ++k) acc[gate][k] = 0.f;
-    for (int64_t v = 1; v < frames; ++v) {
-        const int64_t p = pos(v);
-        float dg[4];
+        for (int k = 0; k < GS; ++k) dacc[gate][k] = 0.f;
+    auto load2 = [&](int i, float (&r)[5]) {
+        const int u = frames - 1 - min(i, frames - 1), up = max(u - 1, 0);
 #pragma unroll
-        for (int gate = 0; gate < 4; ++gate) dg[gate] = active ? dx[p * xstride + gate * H] : 0.f;
-        const float hv = active ? __ldg(hp_ + pos(v - 1) * hstride) : 0.f;
+        for (int gate = 0; gate < 4; ++gate) r[gate] = active ? drow[u * xstep + gate * H + j] : 0.f;
+        const float hpv = active ? __ldg(hs + up * hstep) : 0.f;
+        r[4] = u > 0 ? hpv : 0.f;
+    };
+    float ring2[P][5];
+#pragma unroll
+    for (int v = 0; v < P; ++v) load2(v, ring2[v]);
+    auto sum = [&](float (&r)[5], int i) {
 #pragma unroll
         for (int k = 0; k < GS; ++k) {
-            const float hk = GS == 1 ? hv : __shfl_sync(0xffffffffu, hv, k, GS);
+            const float hk = k < H ? __shfl_sync(0xffffffffu, r[4], k, GS) : 0.f;
 #pragma unroll
-            for (int gate = 0; gate < 4; ++gate) acc[gate][k] = fmaf(dg[gate], hk, acc[gate][k]);
+            for (int gate = 0; gate < 4; ++gate) dacc[gate][k] = fmaf(r[gate], hk, dacc[gate][k]);
         }
-    }
-    if (active) {
-        float* o = dw + (int64_t)b * wsize + (int64_t)td * H * G + j;
+        load2(i + P, r);
+    };
+    for (i0 = 0; i0 + P <= frames; i0 += P)
+#pragma unroll
+        for (int v = 0; v < P; ++v) sum(ring2[v], i0 + v);
+#pragma unroll
+    for (int v = 0; v < P; ++v)
+        if (i0 + v < frames) sum(ring2[v], i0 + v);
+    if (active)
 #pragma unroll
         for (int k = 0; k < GS; ++k)
             if (k < H)
 #pragma unroll
-                for (int gate = 0; gate < 4; ++gate) o[(int64_t)k * G + gate * H] = acc[gate][k];
-    }
+                for (int gate = 0; gate < 4; ++gate) o[(int64_t)k * G + gate * H] = dacc[gate][k];
+#endif
 }
 
+// Dynamic shared memory of K5b's block path (floats): with W_hh held, W_hh as K5 holds it (H unit_stride(Hp)),
+// then h_prev double-buffered (2 Hp), the gate gradients double-buffered (2 x 4 Hp, gate-major), dh_rec and
+// dc_rec (Hp each), all zero past H: kernels/lstm_recurrence.py::_block_smem.
+// A block walks sequence q backward, thread tid owning units tid, tid + THREADS, ...: their four gate rows, the
+// cells' backward and dh_rec of each. Walk index i: forward step u = frames - 1 - i.
+template <bool W_SMEM>
 __device__ void block_sequence_backward(const float* __restrict__ xp, const float* __restrict__ wT,
                                         const float* __restrict__ hseq, const float* __restrict__ cseq,
                                         const float* __restrict__ dhseq, float* __restrict__ dxp,
-                                        float* __restrict__ dw, int64_t wsize, int H, int64_t frames, int B,
+                                        float* __restrict__ dw, int64_t wsize, int H, int frames, int B,
                                         int dirs, int q, float* smem) {
-    constexpr int ROWS = 4;                                // gate rows a thread takes in one pass
-    constexpr int KC = 8;                                  // columns of d(W_hh^T) summed at once
-    const int G = 4 * H;
-    float* gates = smem;                                   // [G]
-    float* dgs = smem + G;                                 // [G]
-    float* dhr = smem + 2 * G;                             // [H]: dh_rec
-    float* dcr = dhr + H;                                  // [H]: dc_rec
+    const int Hp = padded_h(H), WS = unit_stride(Hp), G = 4 * H;
+    float* ws = smem;                                          // [H][WS] when W_SMEM
+    float* hb = smem + (W_SMEM ? H * WS : 0);                  // [2][Hp]: h_prev of the step
+    float* dgs = hb + 2 * Hp;                                  // [2][4 Hp]: the step's gate gradients
+    float* dhr = dgs + 8 * Hp;                                 // [Hp]: dh_rec
+    float* dcr = dhr + Hp;                                     // [Hp]: dc_rec
     const int b = q % B, td = q / B, d = td % dirs, t = td / dirs;
-    const int64_t xoff = (int64_t)td * frames * B * G + (int64_t)b * G;
-    const float* x = xp + xoff;
-    float* dx = dxp + xoff;
-    const int64_t xstride = (int64_t)B * G;
-    const int64_t hoff = (int64_t)t * frames * B * dirs * H + (int64_t)b * dirs * H + d * H;
-    const float* hs = hseq + hoff;
-    const float* cs = cseq + hoff;
-    const float* dhs = dhseq + hoff;
-    const int64_t hstride = (int64_t)B * dirs * H;
+    const int64_t xrow = (int64_t)B * G, hrow = (int64_t)B * dirs * H;
+    const int64_t xstep = d ? -xrow : xrow, hstep = d ? -hrow : hrow;
+    const int p0 = d ? frames - 1 : 0;
+    const int64_t xbase = ((int64_t)td * frames + p0) * xrow + (int64_t)b * G;
+    const float* x = xp + xbase;
+    float* dx = dxp + xbase;
+    const int64_t hbase = ((int64_t)t * frames + p0) * hrow + (int64_t)b * dirs * H + d * H;
+    const float* hs = hseq + hbase;
+    const float* cs = cseq + hbase;
+    const float* dhs = dhseq + hbase;
     const float* w = wT + (int64_t)td * H * G;
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
-    for (int j = tid; j < H; j += THREADS) dhr[j] = dcr[j] = 0.f;
-    for (int64_t u = frames - 1; u >= 0; --u) {
-        const int64_t p = d ? frames - 1 - u : u;
-        const int64_t pp = d ? p + 1 : p - 1;                  // step u - 1 of the forward walk
-        // the forward's gate sums (block_sequence): k ascending from zero, the projection added, then the
-        // row's scale; h_prev = 0 at the walk's first step. All of a thread's rows in one pass over h.
-        for (int r0 = 0; r0 < G; r0 += ROWS * THREADS) {
-            float acc[ROWS];
-#pragma unroll
-            for (int k = 0; k < ROWS; ++k) acc[k] = 0.f;
-            if (u > 0) {
-#pragma unroll 2
-                for (int j = 0; j < H; ++j) {
-                    const float hj = __ldg(hs + pp * hstride + j);
-                    const float* wj = w + (int64_t)j * G + r0 + tid;
-#pragma unroll
-                    for (int k = 0; k < ROWS; ++k)
-                        if (r0 + tid + k * THREADS < G) acc[k] = fmaf(hj, __ldg(wj + k * THREADS), acc[k]);
-                }
-            }
-#pragma unroll
-            for (int k = 0; k < ROWS; ++k) {
-                const int r = r0 + tid + k * THREADS;
-                if (r < G) {
-                    const int gate = r / H;
-                    const float z = (__ldg(x + p * xstride + r) + acc[k]) * gate_scale(gate);
-                    gates[r] = gate == 2 ? fmaf(logistic_(z), 2.f, -1.f) : logistic_(z);
-                }
-            }
+    if (W_SMEM) {
+        for (int e = tid; e < H * G; e += THREADS) {                 // coalesced: W^T row k, column gate H + j
+            const int k = e / G, col = e % G, gate = col / H, jj = col % H;
+            ws[jj * WS + gate * Hp + k] = __ldg(w + e);
         }
-        __syncthreads();                                   // the gates of step u are in; dh_rec of step u + 1 too
+        for (int e = tid; e < H * 4 * (Hp - H); e += THREADS) {     // the padding past H
+            const int jj = e / (4 * (Hp - H)), r = e % (4 * (Hp - H));
+            ws[jj * WS + (r / (Hp - H)) * Hp + H + r % (Hp - H)] = 0.f;
+        }
+    }
+    for (int e = tid; e < 2 * Hp; e += THREADS) {              // h_prev of the first backward step, u = frames - 1
+        const int jj = e % Hp;
+        hb[e] = (e < Hp && jj < H && frames >= 2) ? __ldg(hs + (frames - 2) * hstep + jj) : 0.f;
+    }
+    for (int e = tid; e < 10 * Hp; e += THREADS) dgs[e] = 0.f;  // the gradients' padding, dh_rec and dc_rec
+    __syncthreads();
+
+    for (int i = 0; i < frames; ++i) {
+        const int u = frames - 1 - i, par = i & 1;
+        const float* hcur = hb + par * Hp;                     // h[u - 1]
+        float* hnext = hb + (par ^ 1) * Hp;                    // h[u - 2], for the next step
+        float* dgc = dgs + par * 4 * Hp;
         for (int j = tid; j < H; j += THREADS) {
-            const float ig = gates[j], fg = gates[H + j], gg = gates[2 * H + j], og = gates[3 * H + j];
-            const float tc = fmaf(logistic_(__ldg(cs + p * hstride + j) * S_TANH), 2.f, -1.f);
-            const float cp = u > 0 ? __ldg(cs + pp * hstride + j) : 0.f;
-            const float dh = __ldg(dhs + p * hstride + j) + dhr[j];
-            const float dc = dcr[j] + dh * og * (1.f - tc * tc);
-            const float dg[4] = {dc * gg * ig * (1.f - ig), dc * cp * fg * (1.f - fg), dc * ig * (1.f - gg * gg),
-                                 dh * tc * og * (1.f - og)};
+            float acc[4], z[4], dg[4];
+            block_row_sums<W_SMEM>(ws + j * WS, w, j, H, Hp, hcur, acc);
+            const float* xu = x + u * xstep + j;
+#pragma unroll
+            for (int gate = 0; gate < 4; ++gate) z[gate] = (__ldg(xu + gate * H) + acc[gate]) * gate_scale(gate);
+            const float c = __ldg(cs + u * hstep + j), cp = u > 0 ? __ldg(cs + (u - 1) * hstep + j) : 0.f;
+            float dcj = dcr[j];
+            cell_chain_(cell_factors_(z, c, cp), __ldg(dhs + u * hstep + j) + dhr[j], dcj, dg);
+            dcr[j] = dcj;
+            float* o = dx + u * xstep + j;
 #pragma unroll
             for (int gate = 0; gate < 4; ++gate) {
-                dgs[gate * H + j] = dg[gate];
-                dx[p * xstride + gate * H + j] = dg[gate];
+                dgc[gate * Hp + j] = dg[gate];
+                o[gate * H] = dg[gate];
             }
-            dcr[j] = dc * fg;
+            hnext[j] = u >= 2 ? __ldg(hs + (u - 2) * hstep + j) : 0.f;
         }
-        __syncthreads();                                   // every gate gradient of step u is in
-        for (int j = warp; j < H; j += THREADS / 32) {
-            float s = 0.f;
-            for (int r = lane; r < G; r += 32) s = fmaf(__ldg(w + (int64_t)j * G + r), dgs[r], s);
+        __syncthreads();                        // the step's gate gradients and the next step's h_prev are in
+        if (W_SMEM) {
+            // dh_rec_j = sum over gates and units r of W_hh[gate H + r][j] dg_gate(r): column j, one sum a gate,
+            // the gradients read 16 bytes at a time (zero past H, where the row index stays on row H - 1)
+            for (int j = tid; j < H; j += THREADS) {
+                float sg[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 2
+                for (int r4 = 0; r4 < Hp / 4; ++r4) {
+                    float4 g4[4];
 #pragma unroll
-            for (int off = 16; off; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-            if (lane == 0) dhr[j] = s;
+                    for (int gate = 0; gate < 4; ++gate)
+                        g4[gate] = reinterpret_cast<const float4*>(dgc + gate * Hp)[r4];
+                    const float* w0 = ws + 4 * r4 * WS + j;
+                    const int last = H - 1 - 4 * r4;
+                    const int w1 = min(1, last) * WS, w2 = min(2, last) * WS, w3 = min(3, last) * WS;
+#pragma unroll
+                    for (int gate = 0; gate < 4; ++gate) {
+                        sg[gate] = fmaf(w0[gate * Hp], g4[gate].x, sg[gate]);
+                        sg[gate] = fmaf(w0[w1 + gate * Hp], g4[gate].y, sg[gate]);
+                        sg[gate] = fmaf(w0[w2 + gate * Hp], g4[gate].z, sg[gate]);
+                        sg[gate] = fmaf(w0[w3 + gate * Hp], g4[gate].w, sg[gate]);
+                    }
+                }
+                dhr[j] = (sg[0] + sg[1]) + (sg[2] + sg[3]);
+            }
+        } else {
+            // a warp per unit j: its lanes across row j of W^T (coalesced), then a shuffle reduction
+            for (int j = warp; j < H; j += THREADS / 32) {
+                float sacc = 0.f;
+#pragma unroll
+                for (int gate = 0; gate < 4; ++gate)
+                    for (int k = lane; k < H; k += 32)
+                        sacc = fmaf(__ldg(w + (int64_t)j * G + gate * H + k), dgc[gate * Hp + k], sacc);
+#pragma unroll
+                for (int off = 16; off; off >>= 1) sacc += __shfl_xor_sync(0xffffffffu, sacc, off);
+                if (lane == 0) dhr[j] = sacc;
+            }
         }
-        // no barrier here: dhr is read, and dgs written, only after the next step's first barrier
+        // no second barrier: dhr[j] is next read after the next step's barrier on the L2 path, by its own
+        // thread on the held path; dgs[par] is written again two steps on, after the next step's barrier
+        if (!W_SMEM) __syncthreads();
     }
-    __syncthreads();                                       // every d(xp) of the sequence is in
-    // d(W_hh^T)[k][r] of this sequence: sum over walk steps u >= 1 of d(xp)[u][r] h_k[u - 1]
+#ifndef K5B_NO_DW_PASS
+    __syncthreads();                                           // every d(xp) of the sequence is in; W_hh is free
+    // d(W_hh^T)[k][r] of this sequence: sum over forward steps u >= 1 of d(xp)[u][r] h_k[u - 1]; thread r0 +
+    // tid takes its rows against KC columns of h at a time. With W_hh held, h_prev is staged in its place,
+    // FC steps at a time in rows of Hp floats (zero past H), and read 16 bytes at a time
+    constexpr int ROWS = 4, KC = 16;
+    const int FC = W_SMEM ? (H * WS) / Hp : 0;                 // steps of h_prev the freed space holds
+    auto stage = [&](int u0, int nu) {                         // h_prev of forward steps u0 .. u0 + nu - 1
+        for (int e = tid; e < nu * Hp; e += THREADS) {
+            const int uu = e / Hp, k = e % Hp;
+            ws[e] = k < H ? __ldg(hs + (u0 + uu - 1) * hstep + k) : 0.f;
+        }
+    };
+    const bool one_chunk = W_SMEM && frames - 1 <= FC;        // staged once for every tile (bark-262: 176 steps)
+    if (one_chunk) {
+        stage(1, frames - 1);
+        __syncthreads();
+    }
     float* o = dw + (int64_t)b * wsize + (int64_t)td * H * G;
     for (int r0 = 0; r0 < G; r0 += ROWS * THREADS)
         for (int k0 = 0; k0 < H; k0 += KC) {
@@ -647,20 +820,42 @@ __device__ void block_sequence_backward(const float* __restrict__ xp, const floa
             for (int k = 0; k < ROWS; ++k)
 #pragma unroll
                 for (int c = 0; c < KC; ++c) acc[k][c] = 0.f;
-            for (int64_t v = 1; v < frames; ++v) {
-                const int64_t p = d ? frames - 1 - v : v;
-                const int64_t pp = d ? p + 1 : p - 1;
-                float hk[KC];
-#pragma unroll
-                for (int c = 0; c < KC; ++c) hk[c] = k0 + c < H ? __ldg(hs + pp * hstride + k0 + c) : 0.f;
+            auto rows = [&](int u, const float (&hk)[KC]) {
 #pragma unroll
                 for (int k = 0; k < ROWS; ++k) {
                     const int r = r0 + tid + k * THREADS;
-                    if (r < G) {
-                        const float g = dx[p * xstride + r];
+                    const float g = r < G ? dx[u * xstep + r] : 0.f;
 #pragma unroll
-                        for (int c = 0; c < KC; ++c) acc[k][c] = fmaf(g, hk[c], acc[k][c]);
+                    for (int c = 0; c < KC; ++c) acc[k][c] = fmaf(g, hk[c], acc[k][c]);
+                }
+            };
+            if (W_SMEM) {
+                for (int u0 = 1; u0 < frames; u0 += FC) {
+                    const int nu = min(FC, frames - u0);
+                    if (!one_chunk) {
+                        __syncthreads();                       // the previous chunk's reads are done
+                        stage(u0, nu);
+                        __syncthreads();
                     }
+#pragma unroll 2
+                    for (int uu = 0; uu < nu; ++uu) {
+                        float hk[KC];
+                        const float4* h4 = reinterpret_cast<const float4*>(ws + uu * Hp + k0);
+#pragma unroll
+                        for (int c4 = 0; c4 < KC / 4; ++c4) {
+                            const float4 v = k0 + 4 * c4 < Hp ? h4[c4] : make_float4(0.f, 0.f, 0.f, 0.f);
+                            hk[4 * c4] = v.x, hk[4 * c4 + 1] = v.y, hk[4 * c4 + 2] = v.z, hk[4 * c4 + 3] = v.w;
+                        }
+                        rows(u0 + uu, hk);
+                    }
+                }
+            } else {
+#pragma unroll 4
+                for (int u = 1; u < frames; ++u) {
+                    float hk[KC];
+#pragma unroll
+                    for (int c = 0; c < KC; ++c) hk[c] = k0 + c < H ? __ldg(hs + (u - 1) * hstep + k0 + c) : 0.f;
+                    rows(u, hk);
                 }
             }
 #pragma unroll
@@ -672,17 +867,19 @@ __device__ void block_sequence_backward(const float* __restrict__ xp, const floa
                         if (k0 + c < H) o[(int64_t)(k0 + c) * G + r] = acc[k][c];
             }
         }
+#endif
 }
 
-__global__ void __launch_bounds__(THREADS)
+// MIN_BLOCKS: the blocks an SM that ptxas plans registers for (launch bounds)
+template <int MIN_BLOCKS>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 lstm_recurrence_backward_kernel(const float* __restrict__ xp, const float* __restrict__ wT,
                                 const float* __restrict__ h, const float* __restrict__ c,
                                 const float* __restrict__ dh, float* __restrict__ dxp, float* __restrict__ dw,
                                 int64_t wsize, const int64_t* __restrict__ items) {
     extern __shared__ float4 smem4[];
     const int64_t* it = items + (int64_t)blockIdx.x * ITEM_FIELDS;
-    const int H = (int)it[0], B = (int)it[2], dirs = (int)it[3];
-    const int64_t frames = it[1];
+    const int H = (int)it[0], frames = (int)it[1], B = (int)it[2], dirs = (int)it[3];
     const float* x = xp + it[4];
     float* dx = dxp + it[4];
     const float* hh = h + it[5];
@@ -691,15 +888,22 @@ lstm_recurrence_backward_kernel(const float* __restrict__ xp, const float* __res
     const float* w = wT + it[6];
     float* g = dw + it[6];
     const int first = (int)it[7], n = (int)it[8], lanes = (int)it[9];
-    switch (lanes) {
-        case 1: group_sequence_backward<1>(x, w, hh, cc, dd, dx, g, wsize, H, frames, B, dirs, first, n); break;
-        case 2: group_sequence_backward<2>(x, w, hh, cc, dd, dx, g, wsize, H, frames, B, dirs, first, n); break;
-        case 4: group_sequence_backward<4>(x, w, hh, cc, dd, dx, g, wsize, H, frames, B, dirs, first, n); break;
-        case 8: group_sequence_backward<8>(x, w, hh, cc, dd, dx, g, wsize, H, frames, B, dirs, first, n); break;
-        case 16: group_sequence_backward<16>(x, w, hh, cc, dd, dx, g, wsize, H, frames, B, dirs, first, n); break;
-        default:
-            block_sequence_backward(x, w, hh, cc, dd, dx, g, wsize, H, frames, B, dirs, first,
-                                    reinterpret_cast<float*>(smem4));
+    float* smem = reinterpret_cast<float*>(smem4);
+    // held to 168 registers, GS = 16 sums d(W_hh) in a second walk (fused it spills 2 KB: 1.72 against 1.60
+    // ms a layer offline); with 255 it fuses (2.80 against 3.21 realtime; H100, tools/k5b_variants.py)
+    constexpr int F = MIN_BLOCKS >= 3 ? 8 : 16;
+    switch (lanes) {                       // the work table's lanes: the power of two >= H, or a block
+        case 1: return group_sequence_backward<1, false, F>(x, w, hh, cc, dd, dx, g, wsize, H, frames, B, dirs, first, n);
+        case 2: return group_sequence_backward<2, true, F>(x, w, hh, cc, dd, dx, g, wsize, H, frames, B, dirs, first, n);
+        case 4:
+            if (H == 4) return group_sequence_backward<4, true, F>(x, w, hh, cc, dd, dx, g, wsize, H, frames, B, dirs,
+                                                                   first, n);
+            return group_sequence_backward<4, false, F>(x, w, hh, cc, dd, dx, g, wsize, H, frames, B, dirs, first, n);
+        case 8: return group_sequence_backward<8, false, F>(x, w, hh, cc, dd, dx, g, wsize, H, frames, B, dirs, first, n);
+        case 16:
+            return group_sequence_backward<16, false, F>(x, w, hh, cc, dd, dx, g, wsize, H, frames, B, dirs, first, n);
+        case 0: return block_sequence_backward<true>(x, w, hh, cc, dd, dx, g, wsize, H, frames, B, dirs, first, smem);
+        default: return block_sequence_backward<false>(x, w, hh, cc, dd, dx, g, wsize, H, frames, B, dirs, first, smem);
     }
 }
 
@@ -731,14 +935,24 @@ extern "C" int lstm_recurrence(const void* xp, const void* wT, void* out, void* 
 }
 
 // K5b over its work table: d(xp) from the forward's xp, W^T, h, c and the cotangent dh, and each
-// sequence's d(W_hh^T) in row b of dw, (B, wsize) floats.
+// sequence's d(W_hh^T) in row b of dw, (B, wsize) floats. Where the table's shared memory lets three
+// blocks share an SM, the build held to 168 registers runs (a little spilling in the wide group walks;
+// on an H100 at batch 32 of 2 s offline 1.61 ms a layer against 1.87 with 255 registers, two blocks an
+// SM); where W_hh held for a wide bucket leaves one block an SM, the build with all 255.
 extern "C" int lstm_recurrence_backward(const void* xp, const void* wT, const void* h, const void* c,
                                         const void* dh, void* dxp, void* dw, int64_t wsize, const void* items,
                                         int64_t n_items, int64_t smem, void* stream) {
     if (n_items <= 0) return 0;
-    cudaError_t e = allow_smem((const void*)lstm_recurrence_backward_kernel, smem);
+    int dev = 0, sm_bytes = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sm_bytes, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
     if (e != cudaSuccess) return (int)e;
-    lstm_recurrence_backward_kernel<<<(unsigned int)n_items, THREADS, (size_t)smem, (cudaStream_t)stream>>>(
+    void (*kernel)(const float*, const float*, const float*, const float*, const float*, float*, float*, int64_t,
+                   const int64_t*) = 3 * (smem + 1024) <= sm_bytes ? lstm_recurrence_backward_kernel<3>
+                                                                    : lstm_recurrence_backward_kernel<1>;
+    e = allow_smem((const void*)kernel, smem);
+    if (e != cudaSuccess) return (int)e;
+    kernel<<<(unsigned int)n_items, THREADS, (size_t)smem, (cudaStream_t)stream>>>(
         (const float*)xp, (const float*)wT, (const float*)h, (const float*)c, (const float*)dh, (float*)dxp,
         (float*)dw, wsize, (const int64_t*)items);
     return (int)cudaGetLastError();

@@ -290,48 +290,47 @@ def _lanes(H: int) -> int:
 
 
 def _block_smem(H: int, backward: bool, w_held: bool = False) -> int:
-    """Bytes of dynamic shared memory of a block per sequence (csrc/lstm_recurrence.cu): K5's h twice and
-    its cells (3 Hp floats, Hp = H rounded up to 4), with W_hh held H (4 Hp + 4) more; K5b's gates and
-    their gradients, dh_rec and dc_rec (10 H floats)."""
-    if backward:
-        return 10 * H * 4
+    """Bytes of dynamic shared memory of a block per sequence (csrc/lstm_recurrence.cu), Hp = H rounded up
+    to 4: K5's h twice and its cells (3 Hp floats); K5b's h_prev twice, its gate gradients twice, dh_rec and
+    dc_rec (12 Hp); either with W_hh held H (4 Hp + 4) more."""
     Hp = -(-H // 4) * 4
-    return (3 * Hp + (H * (4 * Hp + 4) if w_held else 0)) * 4
+    w = H * (4 * Hp + 4) if w_held else 0
+    return (w + (12 * Hp if backward else 3 * Hp)) * 4
 
 
 def work_items(layout: RecurrenceLayout, backward: bool = False, smem_limit: int = SMEM_LIMIT) -> np.ndarray:
     """K5's (or with `backward` K5b's) work table: one row of ITEM_FIELDS int64 per block.
     A bucket with H <= GROUP_H runs a group of lanes per sequence (the power of two >= H), THREADS / lanes
-    sequences a block; a larger one a block per sequence, in K5 with its W_hh in shared memory when that
-    fits smem_limit bytes. Sequence q of a bucket is (t, d, b) with q = (t dirs + d) B + b. K5's blocks are
-    ordered longest sequence first, so that the longest chains start at once whatever the card holds.
-    Raises if a block needs more shared memory than smem_limit."""
+    sequences a block; a larger one a block per sequence, with its W_hh in shared memory when that fits
+    smem_limit bytes (`_block_smem` of the kernel's own layout), else read from L2. Sequence q of a bucket
+    is (t, d, b) with q = (t dirs + d) B + b. Blocks are ordered longest sequence first, so that the longest
+    chains start at once whatever the card holds. Raises if a block needs more shared memory than
+    smem_limit, or a group's offsets exceed 32 bits."""
     rows = []
     for k, (H, frames) in enumerate(zip(layout.hidden, layout.frames)):
         base = [H, frames, layout.batch, layout.dirs, layout.xp_offsets[k], layout.h_offsets[k], layout.w_offsets[k]]
         nseq = NB_TARGETS * layout.dirs * layout.batch
         lanes = _lanes(H)
-        if lanes > 0 and not backward and frames * layout.batch * 4 * H >= 2 ** 31:
+        if lanes > 0 and frames * layout.batch * 4 * H >= 2 ** 31:
             raise ValueError(f"lstm_recurrence: a sequence batch of {frames} steps at B = {layout.batch}, H = {H} "
-                             "exceeds K5's 32-bit step offsets")
+                             "exceeds the kernel's 32-bit step offsets")
         if lanes == 0:
             need = _block_smem(H, backward)
             if need > smem_limit:
                 raise ValueError(f"lstm_recurrence: H = {H} needs {need} bytes of shared memory a block, "
                                  f"the card holds {smem_limit}")
-            if not backward:
-                lanes = 0 if _block_smem(H, False, w_held=True) <= smem_limit else -1
+            lanes = 0 if _block_smem(H, backward, w_held=True) <= smem_limit else -1
         per_block = THREADS // lanes if lanes > 0 else 1
         rows += [base + [q, min(per_block, nseq - q), lanes] for q in range(0, nseq, per_block)]
-    if not backward:
-        rows.sort(key=lambda r: -r[1])
+    rows.sort(key=lambda r: -r[1])
     return np.asarray(rows, dtype=np.int64).reshape(-1, ITEM_FIELDS)
 
 
 def smem_bytes(items: np.ndarray, backward: bool = False) -> int:
     """The dynamic shared memory a launch of this work table gives every block: its largest block's.
-    With W_hh held (123.5 KB at H = 86) that leaves one block an SM; the table runs the longest chains
-    first, so the blocks that queue past the SM count (realtime chunk batch 8: 169) are the shortest."""
+    With W_hh held (K5 123.5 KB, K5b 126.8 KB at H = 86) that leaves one block an SM; the table runs the
+    longest chains first, so the blocks that queue past the SM count (realtime chunk batch 8: 169) are the
+    shortest."""
     wide = items[items[:, 9] <= 0]
     return max((_block_smem(int(H), backward, w_held=mode == 0) for H, mode in zip(wide[:, 0], wide[:, 9])),
                default=0)
