@@ -29,6 +29,11 @@ layout, offline and realtime, timed beside cuDNN's LSTM and per hidden
 size (with and without K5b's separate d(W_hh) passes); one LSTM train
 step on the card against the CPU at mel-12; 13 canonical LSTM train steps
 with K5 and K5b launches counted; and the trainer's CLI with --lstm.
+Then evaluation: the BSS-eval v4 engine on the card against the float64
+host engine on a 30 s pair, int16 staging, and a 236 s pair timed with its
+peak memory; evaluation_main over a synthetic tree of two 30 s tracks in
+its three scoring modes; and bench_torch.py (the default mode and the
+device-resident evaluation throughput) in processes of their own.
 Weights are random, drawn from a seed. Any failed check exits non-zero.
 
 Output: one line per phase; before the last line, the card's name and power
@@ -90,6 +95,11 @@ STEP_CHAIN_CYCLES_BACKWARD = 30
 # norm) per tensor. Train-mode BatchNorm after the LSTM leaves some gradients (the last layer's biases, the
 # whitening) small remainders of cancelling sums, whose float32 rounding reaches 1e-5 of the largest norm
 LSTM_GRAD_FLOOR = 1e-2
+# BSS-eval v4 on the card (float32, ridge 1e-7) against the float64 host engine (ridge 1e-10), per window in dB:
+# the bound tests/test_bsseval.py:102 holds the JAX package's device engine to; also the evaluator's modes'
+# aggregate SDR
+BSS_TOL_DB = 0.1
+BSS_STAGING_TOL_DB = 1e-4       # int16 staged and scaled on the card against float32 = int16 / 32768 (exact)
 
 
 def fail(msg: str):
@@ -958,6 +968,126 @@ def k5_backward(slicqt, g, kernels):
         library_ms=off["cudnn_backward_ms"])
 
 
+def bsseval_device(dev, card: str):
+    """The BSS-eval v4 engine on the card (ops/bsseval.DeviceBssEval,
+    float32: cuFFT, cuBLAS, cuSOLVER) against the port's float64 host
+    engine on a 30 s separation-like 4-stem stereo pair, int16 staging
+    against float staging, then a 236 s pair already on the card: ms a
+    track, peak memory and the host rescorings of non-finite scores."""
+    from xumx_slicq_torch.ops.bsseval import DeviceBssEval, bss_eval_images, eval_track_device
+
+    rng = np.random.default_rng(3)
+    n = 30 * 44100
+    refs = (rng.standard_normal((4, n, 2)) * 0.1).astype(np.float32)
+    mixing = np.eye(4) + 0.1 * rng.uniform(size=(4, 4))     # each estimate leaks the other stems
+    ests = (np.einsum("ij,jnc->inc", mixing, refs) + 0.02 * rng.standard_normal(refs.shape)).astype(np.float32)
+    eng = DeviceBssEval(device=dev)
+    t0 = time.time()
+    host = bss_eval_images(refs, ests)
+    host_s = time.time() - t0
+    card_scores = eng(refs, ests)
+    err = max(float(np.abs(card_scores[m] - host[m]).max()) for m in host)
+    refs_i16 = (refs * 32768.0).clip(-32768, 32767).astype(np.int16)
+    a, b = eng(refs_i16, ests), eng(refs_i16.astype(np.float32) / 32768.0, ests)
+    staging_err = max(float(np.abs(a[m] - b[m]).max()) for m in a)
+
+    N = TRACK_SECONDS * 44100
+    g = torch.Generator(device=dev).manual_seed(5)
+    r = torch.randn((4, N, 2), generator=g, device=dev) * 0.1
+    e = torch.einsum("ij,jnc->inc", torch.from_numpy(mixing).float().to(dev), r)
+    e += 0.02 * torch.randn(e.shape, generator=g, device=dev)
+    eng(r, e)                                                  # cuFFT plans, cuSOLVER workspaces
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    times = []
+    for _ in range(3):
+        t0 = time.time()
+        scores = eng(r, e)                                     # returns host arrays: the track is done
+        times.append((time.time() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() - base
+    targets = ["bass", "vocals", "other", "drums"]
+    ts = eval_track_device({t: r[i] for i, t in enumerate(targets)}, {t: e[i] for i, t in enumerate(targets)}, eng)
+    sdr = float(np.median([np.median(ts.targets[t]["SDR"]) for t in targets]))
+    phase("bsseval_device", card=card, samples_30s=n, max_abs_db_diff_30s=err, tol_db=BSS_TOL_DB,
+          host_engine_s_30s=host_s, int16_vs_float_staging_db=staging_err, staging_tol_db=BSS_STAGING_TOL_DB,
+          samples_236s=N, ms_236s=times, ms_236s_median=float(np.median(times)),
+          peak_memory_bytes_236s=peak, inputs_bytes_236s=2 * r.numel() * 4, windows_236s=int(scores["SDR"].shape[1]),
+          median_sdr_236s=sdr, fallbacks=eng.fallbacks)
+    check(err <= BSS_TOL_DB, f"BSS-eval on the card differs from the float64 host engine by {err} dB")
+    check(staging_err <= BSS_STAGING_TOL_DB, f"int16 staging differs from float staging by {staging_err} dB")
+    check(all(np.isfinite(v).all() for v in scores.values()) and scores["SDR"].shape == (4, N // 44100),
+          "bad BSS-eval scores for the 236 s pair")
+    check(eng.fallbacks == 0, f"{eng.fallbacks} host rescorings on separation-like signals")
+
+
+def eval_pipeline(dev):
+    """evaluation_main on the card over a synthetic MUSDB tree (two 30 s
+    int16 tracks) with the canonical model (seed 0): host scoring,
+    --bss-on-device and --device-resident agree on aggregate SDR."""
+    import shutil
+
+    from scipy.io import wavfile
+
+    from xumx_slicq_torch.evaluation import evaluation_main
+    from xumx_slicq_torch.models import Unmix
+    from xumx_slicq_torch.models.convert import to_reference_state_dict
+    from xumx_slicq_torch.ops.slicqt import SliCQT
+
+    root = ROOT / "build" / "chip_smoke_eval"
+    shutil.rmtree(root, ignore_errors=True)
+    rng = np.random.default_rng(6)
+    for name in ("t1", "t2"):
+        d = root / "musdb" / "test" / name
+        d.mkdir(parents=True)
+        stems = (rng.standard_normal((4, 30 * 44100, 2)) * 3000).astype(np.int16)
+        for k, stem in enumerate(["bass", "vocals", "other", "drums"]):
+            wavfile.write(d / f"{stem}.wav", 44100, stems[k])
+        wavfile.write(d / "mixture.wav", 44100, stems.sum(0, dtype=np.int32).clip(-32768, 32767).astype(np.int16))
+    md = root / "model"
+    md.mkdir()
+    args = dict(fscale="bark", fbins=262, fmin=32.9, sample_rate=44100.0, seq_dur=2.0, nb_channels=2,
+                realtime=False, lstm=False)
+    (md / "xumx_slicq_v2.json").write_text(json.dumps({"args": args}))
+    slicqt = SliCQT(device="cpu")
+    torch.save(to_reference_state_dict(Unmix(slicqt.block_shapes(1, 2, 2 * 44100), seed=0, device="cpu")),
+               md / "xumx_slicq_v2.pth")
+    base = ["--musdb-root", str(root / "musdb"), "--model-path", str(md)]
+    res = {}
+    for mode in ("host", "bss-on-device", "device-resident"):
+        t0 = time.time()
+        store = evaluation_main(base + ([] if mode == "host" else [f"--{mode}"]))
+        wall = time.time() - t0
+        agg = store.agg_frames_tracks_scores()
+        res[mode] = dict(s_per_track=wall / 2, sdr={t: v["SDR"] for t, v in agg.items()}, tracks=len(store.tracks))
+    diff = max(abs(res["host"]["sdr"][t] - res[m]["sdr"][t]) for m in res for t in res["host"]["sdr"])
+    phase("eval_pipeline", tracks=2, seconds=30, modes=res, max_sdr_diff_db=diff, tol_db=BSS_TOL_DB)
+    check(all(r["tracks"] == 2 for r in res.values()), "eval_pipeline: a mode lost a track")
+    check(diff <= BSS_TOL_DB, f"eval_pipeline: modes disagree on aggregate SDR by {diff} dB")
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def bench_torch_runs():
+    """bench_torch.py as a user runs it, in a process of its own: the
+    default mode and the device-resident evaluation throughput. Each prints
+    exactly one JSON line on stdout."""
+    res = {}
+    for argv in ([], ["--eval-throughput", "--eval-tracks", "2", "--device-resident"]):
+        t0 = time.time()
+        out = subprocess.run([sys.executable, str(ROOT / "bench_torch.py"), *argv], cwd=ROOT, capture_output=True,
+                             text=True, timeout=600)
+        check(out.returncode == 0, f"bench_torch.py {' '.join(argv)} failed: {out.stderr[-3000:]}")
+        lines = out.stdout.strip().splitlines()
+        check(len(lines) == 1, f"bench_torch.py {' '.join(argv)} printed {len(lines)} lines: {lines}")
+        line = json.loads(lines[0])
+        check(np.isfinite(line["value"]) and line["value"] > 0, f"bench_torch.py: bad value {line}")
+        res[" ".join(argv) or "default"] = dict(result=line, wall_s=time.time() - t0,
+                                                details=[ln for ln in out.stderr.splitlines() if ln.startswith("# ")
+                                                         and "supplementary" not in ln])
+    phase("bench_torch", runs=res)
+    check(res["default"]["result"]["metric"] == "inference_time_per_track_s", "bench_torch.py: wrong default metric")
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs an NVIDIA GPU")
@@ -1176,6 +1306,14 @@ def main():
     train_steps(dev, slicqt, kernels, lstm=True)
     torch.cuda.empty_cache()
     trainer_cli(dev, clip, lstm=True)
+
+    # -- phases 24-26: evaluation and the bench --------------------------------
+    torch.cuda.empty_cache()
+    bsseval_device(dev, card)
+    torch.cuda.empty_cache()
+    eval_pipeline(dev)
+    torch.cuda.empty_cache()
+    bench_torch_runs()
 
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
              "bound_ms", "bound_by", "library_ms"]

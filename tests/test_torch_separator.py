@@ -105,6 +105,7 @@ for m in pkgutil.walk_packages(xumx_slicq_torch.__path__, "xumx_slicq_torch."):
             raise
         skipped.append(m.name)
 import chip_smoke
+import bench_torch
 bad = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", "flax", "xumx_slicq_tpu"))
 print(json.dumps({"skipped": skipped, "bad": bad,
                   "ported": sorted(k for k in sys.modules if k.startswith("xumx_slicq_torch"))}))
@@ -112,9 +113,9 @@ print(json.dumps({"skipped": skipped, "bad": bad,
 
 
 def test_port_never_imports_jax():
-    """Every port module (the trainer's and the LSTM's among them) and
-    chip_smoke.py import without jax, flax or the JAX package; only the
-    Triton module needs triton (absent here)."""
+    """Every port module (the trainer's, the LSTM's and the evaluator's
+    among them), chip_smoke.py and bench_torch.py import without jax, flax
+    or the JAX package; only the Triton module needs triton (absent here)."""
     res = subprocess.run([sys.executable, "-c", _ISOLATION, str(ROOT)], capture_output=True, text=True,
                          timeout=120, cwd=ROOT)
     assert res.returncode == 0, res.stderr
@@ -122,7 +123,8 @@ def test_port_never_imports_jax():
     assert out["bad"] == []
     assert len(out["ported"]) >= 25
     assert {f"xumx_slicq_torch.{m}" for m in ("data", "loss", "training", "models.lstm",
-                                              "kernels.lstm_recurrence")} <= set(out["ported"])
+                                              "kernels.lstm_recurrence", "evaluation",
+                                              "ops.bsseval")} <= set(out["ported"])
     try:
         import triton  # noqa: F401
         assert out["skipped"] == []

@@ -6,6 +6,7 @@ machine), the JAX package on its CPU backend (tests/conftest.py).
 """
 
 import numpy as np
+import pytest
 import torch
 
 torch.set_num_threads(1)
@@ -64,3 +65,14 @@ def keep_grads():
 
     return optax.GradientTransformation(lambda p: jax.tree.map(jnp.zeros_like, p),
                                         lambda u, state, params=None: (u, u))
+
+
+@pytest.fixture
+def one_blas_thread():
+    """NumPy's and SciPy's BLAS on one thread for the test (the float64
+    BSS-eval engine's Gram solves and einsums): with several test workers
+    on the machine, a BLAS pool per worker oversubscribes the cores."""
+    from threadpoolctl import threadpool_limits
+
+    with threadpool_limits(limits=1, user_api="blas"):
+        yield

@@ -12,7 +12,9 @@ kernels/): the synthesis gather-assembly (K1, CUDA C++) and the stereo
 Wiener-EM (K2, Triton), each with a backward kernel for training, and the
 LSTM variant's recurrence (K5, CUDA C++). Every other stage is plain
 PyTorch (cuFFT, cuDNN, matmuls). `separator` and `inference` demix with
-either model; `training`, `loss` and `data` train the CDAE model.
+either model; `training`, `loss` and `data` train either model;
+`evaluation` and `ops.bsseval` score a MUSDB18-HQ tree with BSS-eval v4 on
+the host or on the card.
 
 Entry points take an explicit `device` ("cuda" by default) and raise when no
 card is present unless the caller asked for "cpu".

@@ -1,21 +1,56 @@
 """Wav I/O and input normalisation for the port (scipy only).
 
-A copy of `load_info`, `load_audio`, `save_audio` and `preprocess_audio`
-from xumx_slicq_tpu/data.py:51-221 with the PCM helpers they call (the
-training datasets in data.py read through them too); the port imports
-nothing of the JAX package.
+A copy of `load_info`, `load_audio`, `load_audio_raw`, `save_audio` and
+`preprocess_audio` from xumx_slicq_tpu/data.py:51-221 with the PCM helpers
+they call (`pcm_scale_info`, `apply_pcm_scale`; the training datasets in
+data.py read through them too); the port imports nothing of the JAX package.
 """
 
 from math import gcd
 from typing import Optional
 
 import numpy as np
+import torch
 from scipy.io import wavfile
 from scipy.signal import resample_poly
 
 # PCM full-scale factors; 1/2^k is exact in binary, so int -> float32
 # followed by a float32 multiply matches the float64 route
 _PCM_SCALE = {"int16": 1.0 / 32768.0, "int32": 1.0 / 2147483648.0}
+
+
+def pcm_scale_info(dtype) -> tuple:
+    """(scale, offset) such that float = (raw - offset) * scale for a wav
+    sample dtype (a numpy dtype or a torch dtype); raises on unsupported
+    dtypes. The one rule shared by the host loader and the paths that stage
+    raw PCM on the card and scale it there (ops/bsseval.py, evaluation.py)."""
+    name = str(dtype).rsplit(".", 1)[-1] if isinstance(dtype, torch.dtype) else np.dtype(dtype).name
+    if name in ("float32", "float64"):
+        return 1.0, 0.0
+    if name in _PCM_SCALE:
+        return _PCM_SCALE[name], 0.0
+    if name == "uint8":
+        return 1.0 / 128.0, 128.0
+    raise ValueError(f"unsupported wav dtype {name}")
+
+
+def apply_pcm_scale(x, src_dtype=None):
+    """Raw PCM (or float) samples -> float by their wav full scale:
+    (raw - offset) * scale. A numpy array gives float64 on the host (the
+    float64 BSS-eval engine's input); a torch tensor gives float32 on the
+    tensor's own device. The dtype is checked before any conversion; pass
+    `src_dtype` when `x` was staged from an array of another dtype, so that
+    the check and the scale come from the source."""
+    scale, offset = pcm_scale_info(src_dtype if src_dtype is not None else x.dtype)
+    if isinstance(x, torch.Tensor):
+        a = x.to(torch.float32)
+    else:
+        a = np.asarray(x, np.float64)
+    if offset:
+        a = a - offset
+    if scale != 1.0:
+        a = a * scale
+    return a
 
 
 def _to_float32(data: np.ndarray) -> np.ndarray:
@@ -69,6 +104,18 @@ def load_audio(path: str, start: float = 0.0, dur: Optional[float] = None):
     if data.ndim == 1:
         data = data[:, None]
     return _crop_to_float32(data), sr
+
+
+def load_audio_raw(path: str):
+    """Load a wav file without float conversion -> ((channels, samples) in
+    the file's own dtype, samplerate). For PCM_16 sources (MUSDB18-HQ
+    stems) int16 is the lossless staging format with half the bytes of
+    float32: it goes to the card as it is and is scaled there."""
+    sr, data = wavfile.read(str(path), mmap=True)
+    data = np.asarray(data)
+    if data.ndim == 1:
+        data = data[:, None]
+    return data.T.copy(), sr
 
 
 def save_audio(path: str, audio: np.ndarray, sample_rate: int):

@@ -18,3 +18,11 @@ def resolve_device(device="cuda") -> torch.device:
     if dev.type == "cpu":
         return dev
     raise ValueError(f"unsupported device {device!r}: use 'cuda' or 'cpu'")
+
+
+def use_device(dev: torch.device):
+    """Make `dev` the calling thread's current card (each thread has its
+    own); a no-op on the host and for "cuda" without an index, which means
+    the current card."""
+    if dev.type == "cuda" and dev.index is not None:
+        torch.cuda.set_device(dev)

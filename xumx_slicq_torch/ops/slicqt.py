@@ -100,6 +100,7 @@ class SliCQT:
         self.fmax = fmax
         self.fgamma = fgamma
         self.fs = fs
+        self.min_win = min_win
 
         scl = make_scale(scale, fbins, fmin, fmax, fgamma)
         if sllen is None:

@@ -20,6 +20,7 @@ state dict (`xumx_slicq_tpu.pth` or `xumx_slicq_v2.pth`). The JAX package's
 native `params.msgpack` needs flax to read and is not supported here.
 """
 
+import copy
 import json
 import sys
 import time
@@ -122,6 +123,43 @@ class Separator:
             a.numpy()[..., : hi - lo] = audio_big[..., lo:hi]
             pend.append(self._chunk_fn(a.to(self.device, non_blocking=True))[..., : hi - lo])
         return self._to_host(torch.cat(pend, dim=-1))
+
+    @torch.inference_mode()
+    def forward_device(self, audio: torch.Tensor) -> torch.Tensor:
+        """Single-track forward on the device (xumx_slicq_tpu/separator.py:
+        260-289): (1, C, N) audio on (or staged to) this Separator's device
+        -> (4, 1, C, N) estimates that stay there, for scoring in place
+        (ops/bsseval.DeviceBssEval). The chunking and chunk-batch buckets
+        are `forward`'s, with the padding and reassembly done on the
+        device."""
+        audio = audio.to(self.device)
+        B, C, N = audio.shape
+        if B != 1:
+            raise ValueError("forward_device is single-track (B == 1)")
+        chunk = min(self.chunk_size, max(N, self.slicqt.sllen // 2 + 1))
+        nchunks = -(-N // chunk)
+        flat = torch.nn.functional.pad(audio[0].to(torch.float32), (0, nchunks * chunk - N))
+        flat = flat.reshape(C, nchunks, chunk).transpose(0, 1)             # (nchunks, C, chunk)
+        if 1 < nchunks <= self._CHUNK_BATCH_BUCKETS[-1]:
+            nb = next(b for b in self._CHUNK_BATCH_BUCKETS if b >= nchunks)
+            est = self._chunk_fn(torch.nn.functional.pad(flat, (0, 0, 0, 0, 0, nb - nchunks)))
+            est = est[:, :nchunks]                                         # (4, nchunks, C, chunk)
+        else:
+            est = torch.cat([self._chunk_fn(flat[ci: ci + 1].contiguous()) for ci in range(nchunks)], dim=1)
+        est = est.transpose(1, 2).reshape(4, C, nchunks * chunk)[..., :N]
+        return est[:, None]                                                # (4, 1, C, N)
+
+    def clone(self, device) -> "Separator":
+        """A Separator on another device with the same transform geometry
+        and a copy of the weights (one per card for the evaluator's
+        `--devices`)."""
+        dev = resolve_device(device)
+        t = self.slicqt
+        slicqt = SliCQT(scale=t.scale_name, fbins=t.fbins, fmin=t.fmin, fmax=t.fmax, fgamma=t.fgamma,
+                        fs=t.fs, sllen=t.sllen, trlen=t.trlen, min_win=t.min_win, device=dev)
+        model = copy.deepcopy(self.model).to(dev)
+        return Separator(slicqt, model, sample_rate=self.sample_rate, chunk_size=self.chunk_size,
+                         device=dev, quiet=self.quiet)
 
     def _host_buffer(self, shape, zero: bool = False) -> torch.Tensor:
         """Host staging buffer, page-locked when the device is a card: a
