@@ -34,7 +34,20 @@ host engine on a 30 s pair, int16 staging, and a 236 s pair timed with its
 peak memory; evaluation_main over a synthetic tree of two 30 s tracks in
 its three scoring modes; and bench_torch.py (the default mode and the
 device-resident evaluation throughput) in processes of their own.
-Weights are random, drawn from a seed. Any failed check exits non-zero.
+Last, the tools: the canonical offline CDAE and LSTM models exported with
+torch.export at one default chunk (K1, K2 and K5 as registered ops), each
+artifact loaded in a fresh process and held to Separator._chunk_fn with
+its launches per call; the oracle sliCQT search over 6 seeded configs on
+the card, one config's oracle SDR against the CPU; two tuning trials at
+bark-262; and utils.profile_stats held to torch.profiler's own totals on
+the track's profile. Weights are random, drawn from a seed. Any failed
+check exits non-zero.
+
+    python3 chip_smoke.py --phases export_cdae,slicqfinder
+
+runs only the named tool phases after the build (export_cdae, export_lstm,
+slicqfinder, tuning, profile_stats), for development, and prints no result
+line.
 
 Output: one line per phase; before the last line, the card's name and power
 limit as nvidia-smi reports them and one JSON object with the kernels'
@@ -100,6 +113,17 @@ LSTM_GRAD_FLOOR = 1e-2
 # aggregate SDR
 BSS_TOL_DB = 0.1
 BSS_STAGING_TOL_DB = 1e-4       # int16 staged and scaled on the card against float32 = int16 / 32768 (exact)
+# A reloaded torch.export artifact against Separator._chunk_fn on the same chunk, max abs diff on 0.1-RMS input:
+# the same ops on the same weights in another process (cuDNN may pick other conv algorithms there); the bound
+# tests/test_export.py holds the JAX package's artifacts to
+EXPORT_TOL = 1e-5
+EXPORT_CHUNK = 2621440          # the Separator's default chunk, one artifact at batch 1
+# The oracle SDR of one config on the card against the port on the CPU, mean over segments, in dB: stems that
+# agree to ~1e-6 of their scale move an SDR of ~10-20 dB by far less
+ORACLE_SDR_TOL_DB = 1e-3
+# utils.profile_stats against torch.profiler's key_averages on the same profile: device ms and events; the
+# stages' sum against the total
+PROFILE_TOL = 0.01
 
 
 def fail(msg: str):
@@ -112,8 +136,11 @@ def check(cond: bool, msg: str):
         fail(msg)
 
 
+T0 = time.time()
+
+
 def phase(name: str, **fields):
-    print(json.dumps({"phase": name, **fields}), flush=True)
+    print(json.dumps({"phase": name, "elapsed_s": round(time.time() - T0, 1), **fields}), flush=True)
 
 
 def cuda_ms(fn, reps: int, warm: int = 2) -> float:
@@ -172,6 +199,7 @@ def breakdown(sep, slicqt, track, batch: int, chunk: int, name: str = "track_bre
     from torch.profiler import ProfilerActivity, profile
 
     from xumx_slicq_torch.ops import wiener as wiener_ops
+    from xumx_slicq_torch.utils.profile_stats import top
 
     dev = slicqt.device
     n = track.shape[-1]
@@ -199,26 +227,36 @@ def breakdown(sep, slicqt, track, batch: int, chunk: int, name: str = "track_bre
         sep(track)
         torch.cuda.synchronize()
         wall = time.time() - t0
-    # device-side entries only (kernels, copies): a CPU op's entry repeats
-    # the time of the kernels it launched
-    rows = [e for e in prof.key_averages()
-            if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0]
-    busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
-    k2_rows = [e for e in rows if "_em_pass" in e.key]
-    top = sorted(rows, key=lambda e: -e.self_device_time_total)[:10]
+    agg = profile_aggregate(prof, name)
+    busy_ms = agg["device_ms"]
     phase(name, stage_device_ms=stages, profiled_wall_ms=wall * 1e3,
-          device_busy_ms=busy_ms if rows else "not measured",
-          device_busy_share=busy_ms / (wall * 1e3) if rows else "not measured",
-          kernel_launches=sum(e.count for e in rows),
-          k2_kernels=[[e.key[:60], e.count, e.self_device_time_total / 1e3] for e in k2_rows],
-          top_kernels=[[e.key[:60], e.count, e.self_device_time_total / 1e3] for e in top])
+          device_busy_ms=busy_ms if busy_ms else "not measured",
+          device_busy_share=busy_ms / (wall * 1e3) if busy_ms else "not measured",
+          kernel_launches=agg["device_events"], profile_stage_device_ms=agg["stages_device_ms"],
+          k2_kernels=[[k[:60], c, ms] for k, (c, ms) in agg["kernels"].items() if "_em_pass" in k],
+          top_kernels=[[k[:60], c, ms] for k, c, ms in top(agg["kernels"], 10)])
+    return prof, agg
 
 
-def profiled(fn):
+def profile_aggregate(prof, name: str) -> dict:
+    """The profile as a Chrome trace under build/, aggregated by
+    xumx_slicq_torch.utils.profile_stats (device self-time per kernel and
+    per record_function stage, host self-time per op)."""
+    from xumx_slicq_torch.utils.profile_stats import summarize
+
+    path = ROOT / "build" / "chip_smoke_profiles" / f"{name}.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    return summarize(path)
+
+
+def profiled(fn, name: str):
     """(wall ms, device busy ms or None, device launches, top 10 device
     entries, top 8 host ops by self time) of one call of fn, from
-    torch.profiler."""
+    torch.profiler, aggregated by utils.profile_stats."""
     from torch.profiler import ProfilerActivity, profile
+
+    from xumx_slicq_torch.utils.profile_stats import top
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -226,17 +264,10 @@ def profiled(fn):
         fn()
         torch.cuda.synchronize()
         wall = (time.time() - t0) * 1e3
-    events = prof.key_averages()
-    # a host range (the optimizer's step) also shows as a device annotation of its name: not a kernel
-    host = {e.key for e in events if not str(e.device_type).endswith("CUDA")}
-    rows = [e for e in events
-            if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0 and e.key not in host]
-    top = sorted(rows, key=lambda e: -e.self_device_time_total)[:10]
-    busy = sum(e.self_device_time_total for e in rows) / 1e3 if rows else None
-    host_top = sorted((e for e in events if e.key in host), key=lambda e: -e.self_cpu_time_total)[:8]
-    return (wall, busy, sum(e.count for e in rows),
-            [[e.key[:60], e.count, e.self_device_time_total / 1e3] for e in top],
-            [[e.key[:60], e.count, e.self_cpu_time_total / 1e3] for e in host_top])
+    agg = profile_aggregate(prof, name)
+    return (wall, agg["device_ms"] or None, agg["device_events"],
+            [[k[:60], c, ms] for k, c, ms in top(agg["kernels"], 10)],
+            [[k[:60], c, ms] for k, c, ms in top(agg["host_ops"], 8)])
 
 
 def k1_backward(slicqt, g, kernels):
@@ -812,8 +843,8 @@ def train_steps(dev, slicqt, kernels, lstm: bool = False):
     torch.cuda.synchronize()
     launches = {k: fn.launches for k, fn in counters.items()}
     peak = torch.cuda.max_memory_allocated()
-    wall, busy, n_launches, top, host_top = profiled(lambda: run(13, fixed, step))
     name = "lstm_train_steps" if lstm else "train_steps"
+    wall, busy, n_launches, top, host_top = profiled(lambda: run(13, fixed, step), name)
     phase(name, batch=TRAIN_BATCH, seconds=TRAIN_SECONDS, params=n_params, losses=losses, valid_loss=vloss,
           first_step_s=times[0], step_s=times, median_ms_steps_3_10=float(np.median(times[2:10])) * 1e3,
           median_ms_sdr_steps=float(np.median(times[10:])) * 1e3, max_memory_allocated_bytes=peak,
@@ -1087,8 +1118,263 @@ def bench_torch_runs():
     phase("bench_torch", runs=res)
     check(res["default"]["result"]["metric"] == "inference_time_per_track_s", "bench_torch.py: wrong default metric")
 
+def profile_stats_phase(prof, agg):
+    """utils.profile_stats on the track_breakdown profile against
+    torch.profiler's own key_averages of it: device self-time and device
+    events within PROFILE_TOL, the stages' device time summing to the
+    total, and each of the Separator's three chunk stages holding some."""
+    events = prof.key_averages()
+    # a record_function range also shows as a device annotation of its name: not a kernel
+    host = {e.key for e in events if not str(e.device_type).endswith("CUDA")}
+    rows = [e for e in events
+            if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0 and e.key not in host]
+    ka_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    ka_n = sum(e.count for e in rows)
+    stages = agg["stages_device_ms"]
+    stage_sum = sum(stages.values())
+    phase("profile_stats", device_ms=agg["device_ms"], key_averages_device_ms=ka_ms,
+          device_events=agg["device_events"], key_averages_events=ka_n, stages_device_ms=stages,
+          stage_sum_ms=stage_sum, tol=PROFILE_TOL)
+    check(ka_ms > 0 and abs(agg["device_ms"] - ka_ms) <= PROFILE_TOL * ka_ms,
+          f"profile_stats: device ms {agg['device_ms']} against key_averages' {ka_ms}")
+    check(abs(agg["device_events"] - ka_n) <= PROFILE_TOL * ka_n,
+          f"profile_stats: {agg['device_events']} device events against key_averages' {ka_n}")
+    check(abs(stage_sum - agg["device_ms"]) <= PROFILE_TOL * agg["device_ms"],
+          f"profile_stats: stages sum to {stage_sum} ms of {agg['device_ms']}")
+    for stage in ("slicqt_forward", "mask_model_and_wiener", "slicqt_backward"):
+        check(stages.get(stage, 0.0) > 0, f"profile_stats: no device time in stage {stage}: {stages}")
 
-def main():
+
+def _write_model_dir(d: Path, lstm: bool) -> Path:
+    """A canonical offline model directory (bark-262, weights from seed 0)
+    in the reference's format, as the trainer writes it."""
+    import shutil
+
+    from xumx_slicq_torch.models import Unmix
+    from xumx_slicq_torch.models.convert import to_reference_state_dict
+    from xumx_slicq_torch.ops.slicqt import SliCQT
+
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    args = dict(fscale="bark", fbins=262, fmin=32.9, sample_rate=44100.0, seq_dur=2.0, nb_channels=2,
+                realtime=False, lstm=lstm)
+    (d / "xumx_slicq_v2.json").write_text(json.dumps({"args": args}))
+    shapes = SliCQT(device="cpu").block_shapes(1, 2, 2 * 44100)
+    torch.save(to_reference_state_dict(Unmix(shapes, lstm=lstm, seed=0, device="cpu")), d / "xumx_slicq_v2.pth")
+    return d
+
+
+def export_phase(dev, lstm: bool):
+    """export_model of the canonical offline model (CDAE, or with `lstm` the
+    LSTM) on the card at one default chunk, batch 1; the artifact loaded in
+    a fresh process (`exported_child`) runs one seeded 0.1-RMS chunk and is
+    held to Separator._chunk_fn on it, with its launches per call and its
+    time against the Separator's."""
+    import shutil
+
+    from xumx_slicq_torch.export import export_model
+
+    name = "export_lstm" if lstm else "export_cdae"
+    root = ROOT / "build" / f"chip_smoke_{name}"
+    model_dir = _write_model_dir(root / "model", lstm)
+    t0 = time.time()
+    meta = export_model(model_dir, root / "artifact", chunk_lens=(EXPORT_CHUNK,), batch=1, device="cuda")
+    export_s = time.time() - t0
+    torch.cuda.empty_cache()
+    out_json = root / "child.json"
+    t0 = time.time()
+    child = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--exported-child", str(root / "artifact"),
+                            str(model_dir), str(out_json)], cwd=ROOT, capture_output=True, text=True, timeout=900)
+    child_s = time.time() - t0
+    check(child.returncode == 0, f"{name}: the fresh process failed: {child.stdout[-2000:]} {child.stderr[-3000:]}")
+    res = json.loads(out_json.read_text())
+    (chunk,) = meta["chunks"]
+    want = dict(synth_assembly=1, wiener_em=3, lstm_recurrence=3 if lstm else 0)
+    phase(name, chunk_len=EXPORT_CHUNK, batch=1, export_s=export_s, export_trace_and_save_s=chunk["seconds"],
+          artifact_bytes=chunk["bytes"], ops_exported=chunk["ops"], fresh_process_s=child_s, tol=EXPORT_TOL,
+          expected_launches_per_call=want, **res)
+    check(res["max_abs_diff"] <= EXPORT_TOL, f"{name}: artifact differs from Separator._chunk_fn by "
+                                             f"{res['max_abs_diff']} > {EXPORT_TOL}")
+    check(res["finite"] and res["shape"] == [4, 1, 2, EXPORT_CHUNK], f"{name}: bad artifact output {res}")
+    for call in res["launches_per_call"]:
+        check(call == want, f"{name}: an artifact call launched {call}, expected {want}")
+    check(res["ops_loaded"] == chunk["ops"], f"{name}: the loaded graph holds {res['ops_loaded']}")
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def exported_child(export_dir: str, model_dir: str, out_json: str):
+    """The fresh process of `export_phase`: load the artifact (the port's
+    ExportedSeparator imports the registered ops first), run a seeded
+    0.1-RMS chunk through it twice, counting the kernels' launches per call,
+    then through Separator._chunk_fn; times are host-clock medians of 3
+    calls after a warm-up, each ending in a synchronize."""
+    sys.path.insert(0, str(ROOT))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from xumx_slicq_torch.export import ExportedSeparator
+    from xumx_slicq_torch.kernels.lstm_recurrence import lstm_recurrence
+    from xumx_slicq_torch.kernels.ops import graph_op_counts
+    from xumx_slicq_torch.kernels.synth_assembly import synth_assembly
+    from xumx_slicq_torch.kernels.wiener_em import wiener_em
+    from xumx_slicq_torch.separator import Separator
+
+    counters = dict(synth_assembly=synth_assembly, wiener_em=wiener_em, lstm_recurrence=lstm_recurrence)
+    dev = torch.device("cuda")
+    t0 = time.time()
+    es = ExportedSeparator(export_dir)
+    prog = es.program(EXPORT_CHUNK)
+    fn = prog.module()
+    load_s = time.time() - t0
+    chunk = torch.from_numpy((np.random.default_rng(1).standard_normal((1, 2, EXPORT_CHUNK)) * 0.1)
+                             .astype(np.float32)).to(dev)
+
+    def timed(f):
+        times = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t = time.time()
+            f()
+            torch.cuda.synchronize()
+            times.append(time.time() - t)
+        return float(np.median(times[1:])) * 1e3, times[0] * 1e3
+
+    per_call = []
+    with torch.no_grad():
+        for _ in range(2):
+            before = {k: c.launches for k, c in counters.items()}
+            est = fn(chunk)
+            torch.cuda.synchronize()
+            per_call.append({k: c.launches - before[k] for k, c in counters.items()})
+        artifact_ms, artifact_first_ms = timed(lambda: fn(chunk))
+        artifact_prof = profiled(lambda: fn(chunk), Path(out_json).stem + "_artifact")
+    sep = Separator.load(model_path=model_dir, device=dev, chunk_size=None)
+    with torch.inference_mode():
+        ref = sep._chunk_fn(chunk)
+        separator_ms, _ = timed(lambda: sep._chunk_fn(chunk))
+        separator_prof = profiled(lambda: sep._chunk_fn(chunk), Path(out_json).stem + "_separator")
+    res = dict(max_abs_diff=float((est - ref).abs().max()), stem_max=float(ref.abs().max()),
+               shape=list(est.shape), finite=bool(torch.isfinite(est).all()), launches_per_call=per_call,
+               ops_loaded=graph_op_counts(prog.graph), graph_nodes=len(prog.graph.nodes), load_s=load_s,
+               artifact_ms=artifact_ms, artifact_timed_first_ms=artifact_first_ms, separator_ms=separator_ms,
+               # one profiled call each: (wall ms, device busy ms, device events)
+               artifact_profiled=artifact_prof[:3], separator_profiled=separator_prof[:3],
+               max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
+    Path(out_json).write_text(json.dumps(res))
+
+
+def slicqfinder_phase(dev):
+    """slicqfinder_main on the card at the JAX defaults for segments (4 of
+    5.0 s) over 6 seeded random configs on the synthetic dataset; per
+    config: evaluated or skipped, its K1 and K2 launches, host seconds of
+    plan building against the oracle's seconds on the device's timeline
+    (CUDA events, launch gaps included) and, from one profiled segment, the
+    device's busy share; the first evaluated config's oracle SDR against
+    the port on the CPU."""
+    import random
+
+    from xumx_slicq_torch.data import SyntheticDataset
+    from xumx_slicq_torch.slicqfinder import (build_transform, evaluate_config, oracle_separate, random_config,
+                                              slicqfinder_main)
+
+    out = ROOT / "build" / "chip_smoke_slicqfinder.json"
+    n_iter, seed, n_seg, seq_dur = 6, 42, 4, 5.0
+    t0 = time.time()
+    best = slicqfinder_main(["--synthetic-dataset", "--n-iter", str(n_iter), "--seed", str(seed), "--n-segments",
+                             str(n_seg), "--seq-dur", str(seq_dur), "--output-json", str(out)])
+    wall = time.time() - t0
+    history = json.loads(out.read_text())["history"]
+    rng = random.Random(seed)
+    configs, rows, h = [random_config(rng) for _ in range(n_iter)], [], iter(history)
+    entry = next(h, None)
+    for cfg in configs:
+        if entry is not None and all(entry[k] == v for k, v in cfg.items()):
+            rows.append(dict(config=cfg, evaluated=True, oracle_sdr=entry["oracle_sdr"],
+                             **{k: entry[k] for k in ("launches", "plan_s", "oracle_s", "device_s", "score_s")}))
+            entry = next(h, None)
+        else:
+            rows.append(dict(config=cfg, evaluated=False))
+    check(entry is None and history, f"slicqfinder: history {history} does not follow the seeded configs")
+    first = next(r for r in rows if r["evaluated"])
+    segments = SyntheticDataset(n_tracks=n_seg, seq_duration=seq_dur, samples_per_track=1, seed=seed)
+    segments = [segments[i] for i in range(n_seg)]
+    t0 = time.time()
+    sdr_cpu = evaluate_config(first["config"], segments, device="cpu")
+    cpu_s = time.time() - t0
+    diff = abs(sdr_cpu - first["oracle_sdr"])
+    # one profiled oracle of each evaluated config on the first segment: the device's busy ms against the wall
+    profiles = []
+    with torch.inference_mode():
+        for r in rows:
+            if r["evaluated"]:
+                t = build_transform(r["config"], dev)
+                mix, stems = (torch.from_numpy(a).to(dev) for a in (segments[0][0], segments[0][1:]))
+                oracle_separate(t, mix, stems)
+                wall_ms, busy_ms, events = profiled(lambda: oracle_separate(t, mix, stems), "slicqfinder")[:3]
+                profiles.append(dict(config=r["config"], wall_ms=wall_ms, device_busy_ms=busy_ms,
+                                     device_events=events))
+    phase("slicqfinder", n_iter=n_iter, segments=n_seg, seq_dur=seq_dur, wall_s=wall, configs=rows,
+          best=best, first_oracle_sdr_cuda=first["oracle_sdr"], first_oracle_sdr_cpu=sdr_cpu,
+          sdr_diff_db=diff, tol_db=ORACLE_SDR_TOL_DB, cpu_oracle_s=cpu_s, one_segment_profiles=profiles)
+    for r in rows:
+        if r["evaluated"]:
+            check(r["launches"] == dict(synth_assembly=n_seg, wiener_em=3 * n_seg),
+                  f"slicqfinder: {r['config']} launched {r['launches']}")
+            check(np.isfinite(r["oracle_sdr"]), f"slicqfinder: non-finite oracle SDR for {r['config']}")
+    check(diff <= ORACLE_SDR_TOL_DB, f"slicqfinder: oracle SDR on the card {first['oracle_sdr']} against "
+                                     f"{sdr_cpu} on the CPU")
+
+
+def tuning_phase(dev):
+    """tuning_main on the card: 2 trials of 2 epochs, 2 batches of 16 at
+    bark-262 on the synthetic dataset; study.json must hold 2 trials with
+    finite values, and K1, K2 and K2's backward must have launched."""
+    import shutil
+
+    from xumx_slicq_torch.kernels.synth_assembly import synth_assembly
+    from xumx_slicq_torch.kernels.wiener_em import wiener_em, wiener_em_backward
+    from xumx_slicq_torch.tuning import tuning_main
+
+    d = ROOT / "build" / "chip_smoke_tuning"
+    shutil.rmtree(d, ignore_errors=True)
+    counters = dict(synth_assembly=synth_assembly, wiener_em=wiener_em, wiener_em_backward=wiener_em_backward)
+    before = {k: c.launches for k, c in counters.items()}
+    t0 = time.time()
+    best = tuning_main(["--study-dir", str(d), "--synthetic-dataset", "--n-trials", "2", "--trial-epochs", "2",
+                        "--max-batches-per-epoch", "2", "--batch-size", "16"])
+    wall = time.time() - t0
+    launches = {k: c.launches - before[k] for k, c in counters.items()}
+    trials = json.loads((d / "study.json").read_text())["trials"]
+    phase("tuning", wall_s=wall, launches=launches, best_value=None if best is None else best["value"],
+          trials=[{k: t.get(k) for k in ("id", "params", "value", "pruned", "intermediate", "seconds", "error")}
+                  for t in trials])
+    check(len(trials) == 2 and all("error" not in t and np.isfinite(t["value"]) for t in trials),
+          f"tuning: study.json holds {trials}")
+    check(all(n > 0 for n in launches.values()), f"tuning: a kernel was not launched: {launches}")
+    shutil.rmtree(d, ignore_errors=True)
+
+
+def run_only(names, dev, slicqt):
+    """A development run (python3 chip_smoke.py --phases a,b): the named
+    tool phases alone after the build, with no result line."""
+    from xumx_slicq_torch.models import Unmix
+    from xumx_slicq_torch.separator import Separator
+
+    def profile_only():
+        sep = Separator(slicqt, Unmix(slicqt.block_shapes(1, 2, 2 * 44100), seed=0, device=dev), device=dev)
+        track = (np.random.default_rng(0).standard_normal((1, 2, TRACK_SECONDS * 44100)) * 0.1).astype(np.float32)
+        sep(track)
+        chunk = sep.chunk_size
+        profile_stats_phase(*breakdown(sep, slicqt, track, -(-track.shape[-1] // chunk), chunk))
+
+    table = dict(export_cdae=lambda: export_phase(dev, False), export_lstm=lambda: export_phase(dev, True),
+                 slicqfinder=lambda: slicqfinder_phase(dev), tuning=lambda: tuning_phase(dev),
+                 profile_stats=profile_only)
+    for name in names:
+        table[name]()
+    print("partial run (--phases): no result line")
+
+
+def main(argv=()):
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs an NVIDIA GPU")
     sys.path.insert(0, str(ROOT))
@@ -1143,6 +1429,8 @@ def main():
 
     # main-path shapes: a 236 s track is 4 default chunks, one chunk batch of 4
     slicqt = SliCQT(device=dev)
+    if "--phases" in argv:
+        return run_only(argv[list(argv).index("--phases") + 1].split(","), dev, slicqt)
     chunk = 2621440
     N_track = TRACK_SECONDS * 44100
     nchunks = -(-N_track // chunk)
@@ -1268,7 +1556,7 @@ def main():
         check(n > 0, f"kernel {name} was not launched on the main path")
         kernels[name]["launches"] = n
     check(launches["wiener_em"] <= 3, f"K2 made {launches['wiener_em']} device launches for one chunk batch")
-    breakdown(sep, slicqt, track, batch, chunk)
+    profile_stats_phase(*breakdown(sep, slicqt, track, batch, chunk))
 
     # -- phase 8: realtime Separator ------------------------------------------
     sep_rt = Separator(slicqt, Unmix(shapes, realtime=True, seed=0, device=dev), device=dev)
@@ -1315,6 +1603,14 @@ def main():
     torch.cuda.empty_cache()
     bench_torch_runs()
 
+    # -- phases 27-30: the tools ------------------------------------------------
+    torch.cuda.empty_cache()
+    export_phase(dev, lstm=False)
+    export_phase(dev, lstm=True)
+    slicqfinder_phase(dev)
+    torch.cuda.empty_cache()
+    tuning_phase(dev)
+
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
              "bound_ms", "bound_by", "library_ms"]
     print(card)
@@ -1324,4 +1620,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--exported-child"]:
+        exported_child(*sys.argv[2:5])
+    else:
+        main(sys.argv[1:])

@@ -467,3 +467,102 @@ def test_k5b_wide_buckets(cuda, H, held, dirs):
     items = work_items(layout, backward=True)
     assert set(items[items[:, 0] == H][:, 9].tolist()) == {0 if held else -1}
     _k5b_against_plain(cuda, layout, seed=H + dirs)
+
+
+# -- the registered ops (kernels/ops.py) and export on the card --------------------
+
+
+def _op_cases(cuda):
+    """(name, op, CUDA args, the plain result on the CPU, launch counter) of each registered op."""
+    from xumx_slicq_torch.kernels import ops
+    from xumx_slicq_torch.kernels.lstm_recurrence import _device_plan, layout_args
+    from xumx_slicq_torch.kernels.wiener_em import _device_tables, layout_ints
+
+    t = SliCQT(device=cuda, **MEL12)
+    g = torch.Generator().manual_seed(5)
+    tab = t.synth_table
+    flat = torch.randn((8, 41, t.raw_len), generator=g, dtype=torch.complex64)
+    layout = t.layout(4, 2, 41)
+    x = torch.randn(layout.size, generator=g, dtype=torch.complex64) * 30
+    v = torch.rand(4 * layout.size, generator=g) * 10
+    tables = _device_tables(layout, cuda)
+    rl = RecurrenceLayout((1, 9, 43), (300, 120, 41), 2, 2)
+    xp = torch.randn(rl.xp_size, generator=g)
+    w = torch.randn(rl.w_size, generator=g) * 0.3
+    items, smem = _device_plan(rl, cuda)
+    k5_args = (xp.to(cuda), w.to(cuda), items, smem, *layout_args(rl))
+    return [
+        ("synth_assembly", ops.synth_assembly, (flat.to(cuda), tab.idx, tab.w_re, tab.w_im, tab.unrot),
+         [synth_assembly_plain(flat, SliCQT(device="cpu", **MEL12).synth_table)], synth_assembly, 1),
+        ("wiener_em_grouped", ops.wiener_em_grouped,
+         (x.to(cuda), v.to(cuda), tables["buckets"], tables["items1"], tables["items2"], layout_ints(layout)),
+         [wiener_em_grouped_plain(x, v, layout)], wiener_em, K2_LAUNCHES),
+        ("lstm_recurrence", ops.lstm_recurrence, k5_args, [lstm_recurrence_grouped_plain(xp, w, rl)],
+         lstm_recurrence, 1),
+        ("lstm_recurrence_cell", ops.lstm_recurrence_cell, k5_args,
+         list(lstm_recurrence_grouped_plain(xp, w, rl, cell=True)), lstm_recurrence, 1),
+    ]
+
+
+@pytest.mark.parametrize("which", range(4), ids=["k1", "k2", "k5", "k5_cell"])
+def test_registered_op_on_the_card_matches_plain(cuda, which):
+    """Each op's CUDA implementation launches its kernel (counted) and agrees
+    with the plain version at the kernel's tolerance (1e-5 for K1, 1e-4 for
+    K2 per the largest value, 1e-4 absolute for K5's h and c)."""
+    name, op, args, plain, counter, launches = _op_cases(cuda)[which]
+    before = counter.launches
+    out = op(*args)
+    torch.cuda.synchronize()
+    assert counter.launches == before + launches
+    outs = [out] if isinstance(out, torch.Tensor) else list(out)[: len(plain)]
+    for got, ref in zip(outs, plain):
+        assert got.device.type == "cuda" and got.shape == ref.shape
+        if name.startswith("lstm"):
+            assert float((got.cpu() - ref).abs().max()) <= K5_TOL
+        else:
+            assert _rel(got.cpu(), ref) <= (1e-5 if name == "synth_assembly" else 1e-4)
+
+
+@pytest.mark.parametrize("which", range(4), ids=["k1", "k2", "k5", "k5_cell"])
+def test_registered_op_opcheck_on_the_card(cuda, which):
+    _, op, args, _, _, _ = _op_cases(cuda)[which]
+    torch.library.opcheck(op, args)
+
+
+@pytest.mark.parametrize("lstm", [False, True], ids=["cdae", "lstm"])
+def test_export_round_trip_on_the_card(cuda, tmp_path, lstm):
+    """A mel-12 model exported on the card, saved, loaded again: its graph
+    holds the xumx_slicq op nodes, a call launches K1 once and K2 three
+    times (and K5 three times for the LSTM), and it reproduces the
+    Separator's chunk within 1e-5."""
+    import json
+
+    import numpy as np
+
+    from xumx_slicq_torch.export import ExportedSeparator, export_model
+    from xumx_slicq_torch.kernels.ops import graph_op_counts
+    from xumx_slicq_torch.models.convert import to_reference_state_dict
+    from xumx_slicq_torch.separator import Separator
+
+    d = tmp_path / "model"
+    d.mkdir()
+    args = dict(fscale="mel", fbins=12, fmin=200.0, sample_rate=44100.0, seq_dur=0.3, nb_channels=2,
+                realtime=False, lstm=lstm)
+    (d / "xumx_slicq_v2.json").write_text(json.dumps({"args": args}))
+    shapes = SliCQT(device="cpu", **MEL12).block_shapes(1, 2, int(0.3 * 44100))
+    torch.save(to_reference_state_dict(Unmix(shapes, lstm=lstm, seed=3, device="cpu")), d / "xumx_slicq_v2.pth")
+    meta = export_model(d, tmp_path / "out", chunk_lens=(16384,), device="cuda")
+    assert meta["device"] == "cuda"
+    es = ExportedSeparator(tmp_path / "out")
+    counts = graph_op_counts(es.program(16384).graph)
+    assert counts["synth_assembly"] == 1 and counts["wiener_em_grouped"] == 1
+    assert counts["lstm_recurrence"] == (3 if lstm else 0)
+    x = (np.random.default_rng(0).standard_normal((1, 2, 16384)) * 0.1).astype(np.float32)
+    before = (synth_assembly.launches, wiener_em.launches, lstm_recurrence.launches)
+    est = es(x)
+    torch.cuda.synchronize()
+    moved = (synth_assembly.launches - before[0], wiener_em.launches - before[1],
+             lstm_recurrence.launches - before[2])
+    assert moved == (1, K2_LAUNCHES, 3 if lstm else 0)
+    ref = Separator.load(model_path=d, device=cuda, chunk_size=16384)(x)
+    np.testing.assert_allclose(est, ref, rtol=0, atol=1e-5)

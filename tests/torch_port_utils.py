@@ -22,6 +22,23 @@ TINY_ARGS = dict(
 TINY_LEN = int(0.3 * SR)
 
 
+def port_model_dir(d, lstm: bool = False, realtime: bool = False, seed: int = 3):
+    """A mel-12 model directory the port wrote: the reference's manifest
+    name with TINY_ARGS, and seeded weights under reference names."""
+    import json
+
+    from xumx_slicq_torch.models import Unmix
+    from xumx_slicq_torch.models.convert import to_reference_state_dict
+    from xumx_slicq_torch.ops.slicqt import SliCQT
+
+    d.mkdir(parents=True, exist_ok=True)
+    (d / "xumx_slicq_v2.json").write_text(json.dumps({"args": dict(TINY_ARGS, lstm=lstm, realtime=realtime)}))
+    shapes = SliCQT(device=DEVICE, **MEL12).block_shapes(1, 2, TINY_LEN)
+    model = Unmix(shapes, lstm=lstm, realtime=realtime, seed=seed, device=DEVICE)
+    torch.save(to_reference_state_dict(model), d / "xumx_slicq_v2.pth")
+    return d
+
+
 def noise(seed: int, shape, scale: float = 1.0) -> np.ndarray:
     return (np.random.default_rng(seed).standard_normal(shape) * scale).astype(np.float32)
 

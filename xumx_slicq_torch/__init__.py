@@ -14,7 +14,10 @@ LSTM variant's recurrence (K5, CUDA C++). Every other stage is plain
 PyTorch (cuFFT, cuDNN, matmuls). `separator` and `inference` demix with
 either model; `training`, `loss` and `data` train either model;
 `evaluation` and `ops.bsseval` score a MUSDB18-HQ tree with BSS-eval v4 on
-the host or on the card.
+the host or on the card. The tools: `export` (torch.export artifacts of the
+chunk pipeline, the kernels as registered ops of `kernels.ops`),
+`slicqfinder` (oracle transform search), `tuning`, `visualization`,
+`demixui`, `ops.wiener_contrib` and `utils` (the profiler helpers).
 
 Entry points take an explicit `device` ("cuda" by default) and raise when no
 card is present unless the caller asked for "cpu".
@@ -22,3 +25,20 @@ card is present unless the caller asked for "cpu".
 
 __version__ = "0.1.0"
 
+
+
+def __getattr__(name):
+    # lazy top-level conveniences, as the JAX package's
+    if name == "Separator":
+        from .separator import Separator
+
+        return Separator
+    if name == "SliCQT":
+        from .ops.slicqt import SliCQT
+
+        return SliCQT
+    if name == "Unmix":
+        from .models import Unmix
+
+        return Unmix
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

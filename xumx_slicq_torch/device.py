@@ -1,4 +1,7 @@
-"""Device choice shared by the port's entry points."""
+"""Device choice shared by the port's entry points, and the tables cached
+per device."""
+
+import functools
 
 import torch
 
@@ -26,3 +29,38 @@ def use_device(dev: torch.device):
     the current card."""
     if dev.type == "cuda" and dev.index is not None:
         torch.cuda.set_device(dev)
+
+
+def tracing() -> bool:
+    """True while a fake-tensor trace runs (torch.export): tensors made then
+    are placeholders of the trace, not data."""
+    from torch._guards import detect_fake_mode
+
+    return detect_fake_mode() is not None
+
+
+_CACHE_SIZE = 64                # layouts a table cache keeps per function
+
+
+def device_cache(fn):
+    """Memoise fn(*args, **kwargs), which builds read-only tables on a
+    device from NumPy, filling the cache only outside a trace. Built while
+    torch.export traces, the tables are fake tensors that become the
+    artifact's constants; cached, they would break every later real call."""
+    cache = {}
+
+    @functools.wraps(fn)
+    def get(*args, **kwargs):
+        key = (args, tuple(sorted(kwargs.items())))
+        hit = cache.get(key)
+        if hit is not None:
+            return hit
+        value = fn(*args, **kwargs)
+        if not tracing():
+            if len(cache) >= _CACHE_SIZE:
+                cache.pop(next(iter(cache)))
+            cache[key] = value
+        return value
+
+    get.cache_clear = cache.clear
+    return get

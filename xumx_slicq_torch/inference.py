@@ -40,6 +40,12 @@ def inference_main(argv=None):
     parser.add_argument("--warmup-iters", type=int, default=0)
     parser.add_argument("--model-path", type=str, default=None)
     parser.add_argument("--chunk-size", type=int, default=2621440)
+    parser.add_argument("--grouped-wiener", action="store_true", default=False,
+                        help="accepted for the JAX CLI's flag surface; no effect: K2 always runs every "
+                             "bucket in one grouped call")
+    parser.add_argument("--synth-staging", choices=("f32", "bf16"), default="f32",
+                        help="accepted for the JAX CLI's flag surface; no effect: synthesis always "
+                             "stages in float32 (K1)")
     args = parser.parse_args(argv)
 
     separator = Separator.load(

@@ -29,7 +29,10 @@ together. The wrapper `lstm_recurrence` runs that for CPU tensors and
 launches the CUDA kernel
 (csrc/lstm_recurrence.cu, one launch per layer for all buckets, any hidden
 size: `work_items` is its table of blocks) for CUDA tensors;
-`lstm_recurrence.launches` counts those launches.
+`lstm_recurrence.launches` counts those launches. The two are the device
+implementations of the registered ops `xumx_slicq::lstm_recurrence` and
+`xumx_slicq::lstm_recurrence_cell` (kernels/ops.py), which the wrapper
+calls, so that torch.export keeps each layer as one node.
 
 Training (the JAX package differentiates through the scan,
 xumx_slicq_tpu/training.py:273-274): when xp or W_hh^T needs a gradient,
@@ -47,13 +50,13 @@ the same over a layout (the CPU's version of K5b, and its reference).
 """
 
 import ctypes
-import functools
 import itertools
 from typing import List, Sequence
 
 import numpy as np
 import torch
 
+from ..device import device_cache
 from . import build
 
 NB_TARGETS = 4
@@ -336,9 +339,12 @@ def smem_bytes(items: np.ndarray, backward: bool = False) -> int:
                default=0)
 
 
-@functools.lru_cache(maxsize=64)
+@device_cache
 def _device_plan(layout: RecurrenceLayout, device: torch.device, backward: bool = False):
-    """(work table on the device, dynamic shared memory bytes) of one layout, built once."""
+    """(work table on the device, dynamic shared memory bytes) of one layout, built once (outside a trace).
+    The CPU's plain version walks no table: there it is empty."""
+    if device.type == "cpu":
+        return torch.empty((0, ITEM_FIELDS), dtype=torch.int64), 0
     limit = build.function("lstm_recurrence", "lstm_recurrence_smem_limit", ())()
     items = work_items(layout, backward, limit)
     return torch.from_numpy(items).to(device), smem_bytes(items, backward)
@@ -356,18 +362,32 @@ def _check(xp: torch.Tensor, w: torch.Tensor, layout: RecurrenceLayout):
         raise ValueError(f"lstm_recurrence: xp on {xp.device}, weights on {w.device}")
     if layout.dirs not in (1, 2):
         raise ValueError("lstm_recurrence: dirs must be 1 or 2")
-    if xp.device.type == "cuda" and xp.data_ptr() % 16:
-        raise ValueError("lstm_recurrence: xp must start on a 16-byte boundary (the kernel reads 16 bytes at once)")
+
+
+def layout_args(layout: RecurrenceLayout) -> tuple:
+    """A layout as the ints the registered ops take: (hidden, frames, batch, dirs)."""
+    return list(layout.hidden), list(layout.frames), layout.batch, layout.dirs
 
 
 def _forward(xp: torch.Tensor, w: torch.Tensor, layout: RecurrenceLayout, cell: bool = False):
-    """K5 on checked tensors: (h, c) with c packed like h when `cell`, else (h, None)."""
-    if xp.device.type == "cpu":
-        res = lstm_recurrence_grouped_plain(xp, w, layout, cell)
-        return res if cell else (res, None)
-    out = torch.empty(layout.h_size, dtype=torch.float32, device=xp.device)
-    c = torch.empty_like(out) if cell else None
+    """K5 on checked tensors through the registered ops `xumx_slicq::lstm_recurrence` and
+    `xumx_slicq::lstm_recurrence_cell` (kernels/ops.py): (h, c) with c packed like h when `cell`,
+    else (h, None)."""
+    from . import ops
+
     items, smem = _device_plan(layout, xp.device)
+    if cell:
+        return ops.lstm_recurrence_cell(xp, w, items, smem, *layout_args(layout))
+    return ops.lstm_recurrence(xp, w, items, smem, *layout_args(layout)), None
+
+
+def launch(xp: torch.Tensor, w: torch.Tensor, items: torch.Tensor, smem: int, h_size: int, cell: bool):
+    """K5's launch on CUDA tensors (the registered ops' CUDA implementation, kernels/ops.py): the packed h
+    (h_size,) and, with `cell`, c packed like it, else None. Counted in `lstm_recurrence.launches`."""
+    if xp.data_ptr() % 16:
+        raise ValueError("lstm_recurrence: xp must start on a 16-byte boundary (the kernel reads 16 bytes at once)")
+    out = torch.empty(h_size, dtype=torch.float32, device=xp.device)
+    c = torch.empty_like(out) if cell else None
     fn = build.function("lstm_recurrence", "lstm_recurrence", (
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
         ctypes.c_int64, ctypes.c_void_p))
@@ -396,6 +416,8 @@ def lstm_recurrence_backward(xp: torch.Tensor, w: torch.Tensor, h: torch.Tensor,
                              f"on {xp.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
     if xp.device.type == "cpu":
         return lstm_recurrence_backward_grouped_plain(xp, w, h, c, dh, layout)
+    if xp.data_ptr() % 16:
+        raise ValueError("lstm_recurrence: xp must start on a 16-byte boundary (the kernel reads 16 bytes at once)")
     dxp = torch.empty_like(xp)
     partials = torch.empty((layout.batch, layout.w_size), dtype=torch.float32, device=xp.device)
     items, smem = _device_plan(layout, xp.device, backward=True)

@@ -1,0 +1,146 @@
+"""K1, K2 and K5's forwards as registered ops (torch.library.custom_op).
+
+Each op has two device implementations and a fake one:
+
+* CPU: the kernel's plain PyTorch version;
+* CUDA: the kernel's launch, counted in its wrapper's `.launches` as
+  before (no fallback: a library that cannot be built or loaded raises);
+* fake (`register_fake`): the output shapes, which is all torch.export
+  needs, so a trace never reaches a `data_ptr()` or a Triton launch.
+
+An op on a device other than these two raises. The autograd Functions of
+the kernel modules (`_SynthAssembly`, `_WienerEM`, `_Recurrence`) stay the
+public entry points and call these ops in their forward, so training,
+serving and an exported artifact run the same op; the backward kernels are
+not ops (an artifact serves, it does not train). An exported graph holds
+one `xumx_slicq::...` node per kernel call, and an artifact that
+`torch.export.load` reads in a fresh process runs the kernels of this
+checkout once this module is imported (`export.ExportedSeparator` does).
+
+The ops take tensors and ints only: the kernels' tables are tensor
+arguments (K1's `SynthTable` fields, K2's work tables, K5's work table),
+which torch.export keeps as constants of the artifact, and the layouts are
+int lists (K2: five ints a bucket, (B, C, F, S, M); K5: hidden sizes,
+lengths, batch and directions).
+
+    xumx_slicq::synth_assembly(flat, idx, w_re, w_im, unrot) -> half spectrum
+    xumx_slicq::wiener_em_grouped(x, v, buckets, items1, items2, shapes)
+        -> (estimates, pass-1 partial sums, max slots)
+    xumx_slicq::lstm_recurrence(xp, w, items, smem, hidden, frames, batch, dirs) -> h
+    xumx_slicq::lstm_recurrence_cell(...the same) -> (h, c)
+
+K2's second and third outputs are the state its backward kernel reads; on
+the CPU, whose plain backward recomputes from x and v, they are zeros.
+"""
+
+from typing import List, Tuple
+
+import torch
+from torch import Tensor
+
+from . import lstm_recurrence as _k5
+from . import synth_assembly as _k1
+from . import wiener_em as _k2
+
+NAMESPACE = "xumx_slicq"
+OPS = ("synth_assembly", "wiener_em_grouped", "lstm_recurrence", "lstm_recurrence_cell")
+
+
+# -- K1 --------------------------------------------------------------------------
+
+
+@torch.library.custom_op(f"{NAMESPACE}::synth_assembly", mutates_args=(), device_types="cpu")
+def synth_assembly(flat: Tensor, idx: Tensor, w_re: Tensor, w_im: Tensor, unrot: Tensor) -> Tensor:
+    return _k1.assemble_plain(flat, idx, w_re, w_im, unrot)
+
+
+@synth_assembly.register_kernel("cuda")
+def _(flat, idx, w_re, w_im, unrot):
+    return _k1.launch_forward(flat, idx, w_re, w_im, unrot)
+
+
+@synth_assembly.register_fake
+def _(flat, idx, w_re, w_im, unrot):
+    return flat.new_empty((flat.shape[0], flat.shape[1], idx.shape[0]))
+
+
+# -- K2 --------------------------------------------------------------------------
+
+
+def _k2_state(x: Tensor, buckets: Tensor, items1: Tensor) -> Tuple[Tensor, Tensor]:
+    return (x.new_zeros((items1.shape[0], 16), dtype=torch.float32),
+            x.new_zeros((buckets.shape[0],), dtype=torch.float32))
+
+
+@torch.library.custom_op(f"{NAMESPACE}::wiener_em_grouped", mutates_args=(), device_types="cpu")
+def wiener_em_grouped(x: Tensor, v: Tensor, buckets: Tensor, items1: Tensor, items2: Tensor,
+                      shapes: List[int]) -> Tuple[Tensor, Tensor, Tensor]:
+    y = _k2.wiener_em_grouped_plain(x, v, _k2.layout_of_ints(shapes))
+    return (y, *_k2_state(x, buckets, items1))
+
+
+@wiener_em_grouped.register_kernel("cuda")
+def _(x, v, buckets, items1, items2, shapes):
+    return _k2.launch(x, v, dict(buckets=buckets, items1=items1, items2=items2))
+
+
+@wiener_em_grouped.register_fake
+def _(x, v, buckets, items1, items2, shapes):
+    y = v.new_empty(v.shape, dtype=torch.complex64)
+    partials, maxima = (t.new_empty(t.shape) for t in _k2_state(x, buckets, items1))
+    return y, partials, maxima
+
+
+# -- K5 --------------------------------------------------------------------------
+
+
+def _h_size(hidden: List[int], frames: List[int], batch: int, dirs: int) -> int:
+    return sum(_k5.NB_TARGETS * f * batch * dirs * h for h, f in zip(hidden, frames))
+
+
+def _k5_plain(xp, w, hidden, frames, batch, dirs, cell):
+    return _k5.lstm_recurrence_grouped_plain(xp, w, _k5.RecurrenceLayout(hidden, frames, batch, dirs), cell)
+
+
+@torch.library.custom_op(f"{NAMESPACE}::lstm_recurrence", mutates_args=(), device_types="cpu")
+def lstm_recurrence(xp: Tensor, w: Tensor, items: Tensor, smem: int, hidden: List[int], frames: List[int],
+                    batch: int, dirs: int) -> Tensor:
+    return _k5_plain(xp, w, hidden, frames, batch, dirs, cell=False)
+
+
+@lstm_recurrence.register_kernel("cuda")
+def _(xp, w, items, smem, hidden, frames, batch, dirs):
+    return _k5.launch(xp, w, items, smem, _h_size(hidden, frames, batch, dirs), cell=False)[0]
+
+
+@lstm_recurrence.register_fake
+def _(xp, w, items, smem, hidden, frames, batch, dirs):
+    return xp.new_empty((_h_size(hidden, frames, batch, dirs),))
+
+
+@torch.library.custom_op(f"{NAMESPACE}::lstm_recurrence_cell", mutates_args=(), device_types="cpu")
+def lstm_recurrence_cell(xp: Tensor, w: Tensor, items: Tensor, smem: int, hidden: List[int], frames: List[int],
+                         batch: int, dirs: int) -> Tuple[Tensor, Tensor]:
+    return _k5_plain(xp, w, hidden, frames, batch, dirs, cell=True)
+
+
+@lstm_recurrence_cell.register_kernel("cuda")
+def _(xp, w, items, smem, hidden, frames, batch, dirs):
+    return _k5.launch(xp, w, items, smem, _h_size(hidden, frames, batch, dirs), cell=True)
+
+
+@lstm_recurrence_cell.register_fake
+def _(xp, w, items, smem, hidden, frames, batch, dirs):
+    n = _h_size(hidden, frames, batch, dirs)
+    return xp.new_empty((n,)), xp.new_empty((n,))
+
+
+def graph_op_counts(graph) -> dict:
+    """How many nodes of each xumx_slicq op an FX graph (an ExportedProgram's
+    `graph`) holds, keyed by op name; zero for an op it lacks."""
+    counts = dict.fromkeys(OPS, 0)
+    for node in graph.nodes:
+        target = node.target
+        if node.op == "call_function" and getattr(target, "namespace", None) == NAMESPACE:
+            counts[target._opname] += 1
+    return counts

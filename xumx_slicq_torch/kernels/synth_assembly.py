@@ -11,7 +11,9 @@ arrange ramp, at a static offset -- it computes for each position p < nh
 over the at most O static entries of row p (sentinel idx == raw_len reads
 zero). The CUDA kernel is csrc/synth_assembly.cu; its source note gives the
 bound and the design. `synth_assembly_plain` is the same function in plain
-PyTorch: the wrapper uses it for CPU tensors only.
+PyTorch: the wrapper uses it for CPU tensors only. Both are the two device
+implementations of the registered op `xumx_slicq::synth_assembly`
+(kernels/ops.py), which the wrapper's forward calls.
 
 K1's backward replaces XLA's autodiff of the same assembly in the train
 step (xumx_slicq_tpu/training.py:261-264, 274). With h = g conj(unrot) the
@@ -54,13 +56,20 @@ class SynthTable:
 
 def synth_assembly_plain(flat: torch.Tensor, table: SynthTable) -> torch.Tensor:
     """Plain PyTorch version: (N, S, raw_len) complex64 -> (N, S, nh)."""
-    N, S, _ = flat.shape
+    return assemble_plain(flat, table.idx, table.w_re, table.w_im, table.unrot)
+
+
+def assemble_plain(flat: torch.Tensor, idx: torch.Tensor, w_re: torch.Tensor, w_im: torch.Tensor,
+                   unrot: torch.Tensor) -> torch.Tensor:
+    """`synth_assembly_plain` on the forward table's tensors (the registered
+    op's CPU implementation, kernels/ops.py)."""
+    S = flat.shape[1]
     padded = torch.nn.functional.pad(flat, (0, 1))                 # zero sentinel slot
-    g = padded[:, :, table.idx.long()]                             # (N, S, nh, O)
-    re = (g.real * table.w_re).sum(-1)
-    im = (g.imag * table.w_im).sum(-1)
+    g = padded[:, :, idx.long()]                                   # (N, S, nh, O)
+    re = (g.real * w_re).sum(-1)
+    im = (g.imag * w_im).sum(-1)
     parity = torch.arange(S, device=flat.device) % 2
-    return torch.complex(re, im) * table.unrot[parity][None]
+    return torch.complex(re, im) * unrot[parity][None]
 
 
 def _check(flat: torch.Tensor, table: SynthTable):
@@ -91,9 +100,12 @@ def synth_assembly_backward_plain(g: torch.Tensor, table: SynthTable) -> torch.T
     return torch.complex((gg.real * table.tw_re).sum(-1), (gg.imag * table.tw_im).sum(-1))
 
 
-def _launch_forward(flat: torch.Tensor, table: SynthTable) -> torch.Tensor:
+def launch_forward(flat: torch.Tensor, idx: torch.Tensor, w_re: torch.Tensor, w_im: torch.Tensor,
+                   unrot: torch.Tensor) -> torch.Tensor:
+    """K1's launch on checked CUDA tensors (the registered op's CUDA
+    implementation, kernels/ops.py), counted in `synth_assembly.launches`."""
     N, S, raw_len = flat.shape
-    nh, O = table.idx.shape
+    nh, O = idx.shape
     out = torch.empty((N, S, nh), dtype=torch.complex64, device=flat.device)
     fn = build.function("synth_assembly", "synth_assembly", (
         ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -102,8 +114,8 @@ def _launch_forward(flat: torch.Tensor, table: SynthTable) -> torch.Tensor:
     ))
     stream = torch.cuda.current_stream(flat.device).cuda_stream
     rc = fn(
-        flat.data_ptr(), raw_len, table.idx.data_ptr(), table.w_re.data_ptr(),
-        table.w_im.data_ptr(), table.unrot.data_ptr(), out.data_ptr(),
+        flat.data_ptr(), raw_len, idx.data_ptr(), w_re.data_ptr(),
+        w_im.data_ptr(), unrot.data_ptr(), out.data_ptr(),
         N * S, S, nh, O, stream,
     )
     if rc != 0:
@@ -149,14 +161,16 @@ synth_assembly_backward.launches = 0
 
 
 class _SynthAssembly(torch.autograd.Function):
-    """K1 with its backward kernel; the table is static and takes no gradient."""
+    """K1 with its backward kernel; the table is static and takes no gradient.
+    The forward is the registered op `xumx_slicq::synth_assembly`
+    (kernels/ops.py), which torch.export keeps as one node."""
 
     @staticmethod
     def forward(ctx, flat, table):
+        from . import ops
+
         ctx.table = table
-        if flat.device.type == "cpu":
-            return synth_assembly_plain(flat, table)
-        return _launch_forward(flat, table)
+        return ops.synth_assembly(flat, table.idx, table.w_re, table.w_im, table.unrot)
 
     @staticmethod
     def backward(ctx, g):

@@ -34,6 +34,12 @@ bytes -- forward, each position reads x (16 B) and v (32 B) and writes y
 dL/dv (32 B). The plain versions (`wiener_em_plain`,
 `wiener_em_grouped_plain`, `wiener_em_backward_plain`) are the same
 functions in plain PyTorch: the wrappers use them for CPU tensors only.
+The forward's two device implementations are those of the registered op
+`xumx_slicq::wiener_em_grouped` (kernels/ops.py), which the wrapper calls.
+The plain versions conjugate with `torch.conj_physical`: an op's CPU
+implementation may run where the lazy conjugate bit of `torch.conj` is not
+honoured (under AOT dispatch, as `torch.library.opcheck` runs it, the
+products came out unconjugated).
 
 The closed-form backward, per (b, f) row with U = Cxx^-1 x / m and G_s the
 cotangent of y_s (dL = sum Re(conj(G) dy)):
@@ -45,11 +51,10 @@ cotangent of y_s (dL = sum Re(conj(G) dy)):
     dL/dv_sc = (dL/dv_s + 2 dL/dc_cc) v_sc / m^2 + Re(conj(dL/dc01) u0 conj(u1)) v_s,1-c / m^2
 """
 
-import functools
-
 import numpy as np
 import torch
 
+from ..device import device_cache
 from ..ops.packed import BucketLayout
 
 EPS = float(np.finfo(np.float32).eps)
@@ -102,7 +107,7 @@ def _row_filter(x: torch.Tensor, v: torch.Tensor, m: torch.Tensor):
     ph = _unit_phase(x)
     va, vb = v[:, :, 0], v[:, :, 1]                                      # (S,B,F,T)
     vv = 0.5 * (va * va + vb * vb) * inv_m2
-    pab = ph[:, 0] * torch.conj(ph[:, 1])                                # (B,F,T)
+    pab = ph[:, 0] * torch.conj_physical(ph[:, 1])                                # (B,F,T)
     c00, c11 = (va * va).sum(-1) * inv_m2, (vb * vb).sum(-1) * inv_m2   # (S,B,F)
     c01 = (va * vb * pab).sum(-1) * inv_m2
     w = 0.5 * (c00 + c11) + EPS
@@ -114,7 +119,7 @@ def _row_filter(x: torch.Tensor, v: torch.Tensor, m: torch.Tensor):
     inv = (A11 / det, A00 / det, -A01 / det)                             # i00, i11, i01
     xs0, xs1 = x[:, 0] / m, x[:, 1] / m
     U0 = inv[0] * xs0 + inv[2] * xs1
-    U1 = torch.conj(inv[2]) * xs0 + inv[1] * xs1
+    U1 = torch.conj_physical(inv[2]) * xs0 + inv[1] * xs1
     return dict(va=va, vb=vb, vv=vv, pab=pab, c=(c00, c11, c01), w=w[..., None], R=(R00, R11, R01),
                 inv=inv, U=(U0, U1), inv_m2=inv_m2)
 
@@ -127,7 +132,7 @@ def wiener_em_plain(x: torch.Tensor, v: torch.Tensor, m: torch.Tensor) -> torch.
     U0, U1 = f["U"]
     vv = f["vv"]
     out0 = vv * (R00 * U0 + R01 * U1)
-    out1 = vv * (torch.conj(R01) * U0 + R11 * U1)
+    out1 = vv * (torch.conj_physical(R01) * U0 + R11 * U1)
     return torch.stack([out0, out1], dim=2) * m
 
 
@@ -157,20 +162,20 @@ def _em_backward_bucket(x: torch.Tensor, v: torch.Tensor, gy: torch.Tensor, m: t
     vv, va, vb, w, inv_m2 = f["vv"], f["va"], f["vb"], f["w"], f["inv_m2"]
     G0, G1 = gy[:, :, 0], gy[:, :, 1]                                    # (S,B,F,T)
     Z0 = m * (vv * (R00 * G0 + R01 * G1)).sum(0)                         # m sum_s v_s R_s G_s
-    Z1 = m * (vv * (torch.conj(R01) * G0 + R11 * G1)).sum(0)
+    Z1 = m * (vv * (torch.conj_physical(R01) * G0 + R11 * G1)).sum(0)
     E0 = m * G0 - (i00 * Z0 + i01 * Z1)                                  # m G_s - Cxx^-1 Z
-    E1 = m * G1 - (torch.conj(i01) * Z0 + i11 * Z1)
+    E1 = m * G1 - (torch.conj_physical(i01) * Z0 + i11 * Z1)
     # pass 1: dL/dR_s = sum over frames of v_s U E_s^H (Hermitian parts)
-    gR00 = (vv * (U0 * torch.conj(E0)).real).sum(-1, keepdim=True)
-    gR11 = (vv * (U1 * torch.conj(E1)).real).sum(-1, keepdim=True)
-    gR01 = (vv * (torch.conj(U1) * E0 + U0 * torch.conj(E1))).sum(-1, keepdim=True)
+    gR00 = (vv * (U0 * torch.conj_physical(E0)).real).sum(-1, keepdim=True)
+    gR11 = (vv * (U1 * torch.conj_physical(E1)).real).sum(-1, keepdim=True)
+    gR01 = (vv * (torch.conj_physical(U1) * E0 + U0 * torch.conj_physical(E1))).sum(-1, keepdim=True)
     # pass 2: through R = c / w to dL/dc, then per frame to dL/dv
-    gw = -(gR00 * R00 + gR11 * R11 + (torch.conj(gR01) * R01).real) / w
+    gw = -(gR00 * R00 + gR11 * R11 + (torch.conj_physical(gR01) * R01).real) / w
     gc00, gc11, gc01 = gR00 / w + 0.5 * gw, gR11 / w + 0.5 * gw, gR01 / w
     F0 = R00 * U0 + R01 * U1                                             # R_s U
-    F1 = torch.conj(R01) * U0 + R11 * U1
-    gvv = (torch.conj(E0) * F0 + torch.conj(E1) * F1).real
-    q = (torch.conj(gc01) * f["pab"]).real
+    F1 = torch.conj_physical(R01) * U0 + R11 * U1
+    gvv = (torch.conj_physical(E0) * F0 + torch.conj_physical(E1) * F1).real
+    q = (torch.conj_physical(gc01) * f["pab"]).real
     gva = (gvv * va + 2.0 * gc00 * va + q * vb) * inv_m2
     gvb = (gvv * vb + 2.0 * gc11 * vb + q * va) * inv_m2
     return torch.stack([gva, gvb], dim=2)
@@ -189,10 +194,11 @@ def wiener_em_backward_plain(x: torch.Tensor, v: torch.Tensor, gy: torch.Tensor,
     return torch.cat(gvs)
 
 
-@functools.lru_cache(maxsize=64)
+@device_cache
 def _device_tables(layout: BucketLayout, device: torch.device) -> dict:
-    """K2's work tables for one layout on one device, built once. They are
-    read only; every call allocates its own partial sums and max slots."""
+    """K2's work tables for one layout on one device, built once (outside a
+    trace). They are read only; every call allocates its own partial sums
+    and max slots."""
     buckets, items1, items2 = work_items(layout)
     return dict(
         buckets=torch.from_numpy(buckets).to(device),
@@ -217,19 +223,35 @@ def _check_grouped(x: torch.Tensor, v: torch.Tensor, layout: BucketLayout):
         raise ValueError(f"wiener_em: unsupported device {x.device}")
 
 
+def layout_ints(layout: BucketLayout) -> list:
+    """A layout as the flat int list the registered op takes (five per bucket)."""
+    return [d for shape in layout.shapes for d in shape]
+
+
+def layout_of_ints(shapes) -> BucketLayout:
+    """The inverse of `layout_ints`."""
+    return BucketLayout([shapes[i: i + 5] for i in range(0, len(shapes), 5)])
+
+
 def launch_forward(x: torch.Tensor, v: torch.Tensor, layout: BucketLayout):
-    """K2's three forward launches on checked CUDA tensors. Returns the
-    packed estimates and the call's own pass-1 partial sums and max slots,
-    which the backward reads: no state is shared between calls."""
+    """K2's three forward launches on checked CUDA tensors with the layout's
+    cached tables; see `launch`."""
+    return launch(x, v, _device_tables(layout, x.device))
+
+
+def launch(x: torch.Tensor, v: torch.Tensor, tables: dict):
+    """K2's three forward launches on checked CUDA tensors (the registered
+    op's CUDA implementation, kernels/ops.py). Returns the packed estimates
+    and the call's own pass-1 partial sums and max slots, which the
+    backward reads: no state is shared between calls."""
     from . import triton_wiener_em
 
-    tables = _device_tables(layout, x.device)
     partials = torch.empty((tables["items1"].shape[0], 16), dtype=torch.float32, device=x.device)
-    maxima = torch.zeros(len(layout.shapes), dtype=torch.float32, device=x.device)
+    maxima = torch.zeros(tables["buckets"].shape[0], dtype=torch.float32, device=x.device)
     wiener_em.launches += 1                        # the fill of the max slots
     triton_wiener_em.pass1(x, v, tables, partials, maxima)
     wiener_em.launches += 1
-    y = torch.empty(4 * layout.size, dtype=torch.complex64, device=x.device)
+    y = torch.empty(v.shape[0], dtype=torch.complex64, device=x.device)
     triton_wiener_em.pass2(x, v, tables, partials, maxima, y)
     wiener_em.launches += 1
     return y, partials, maxima
@@ -265,18 +287,23 @@ wiener_em_backward.launches = 0
 
 
 class _WienerEM(torch.autograd.Function):
-    """K2 with its backward kernel. The forward saves its own partial sums
-    and max slots, so a second forward before `backward()` cannot change
-    the first one's gradient."""
+    """K2 with its backward kernel. The forward is the registered op
+    `xumx_slicq::wiener_em_grouped` (kernels/ops.py), one node under
+    torch.export; it saves its own partial sums and max slots, so a second
+    forward before `backward()` cannot change the first one's gradient."""
 
     @staticmethod
     def forward(ctx, x, v, layout):
+        from . import ops
+
         ctx.layout = layout
+        t = _device_tables(layout, x.device)
+        y, partials, maxima = ops.wiener_em_grouped(x, v, t["buckets"], t["items1"], t["items2"],
+                                                    layout_ints(layout))
         if x.device.type == "cpu":
-            ctx.save_for_backward(x, v)
-            return wiener_em_grouped_plain(x, v, layout)
-        y, partials, maxima = launch_forward(x, v, layout)
-        ctx.save_for_backward(x, v, partials, maxima)
+            ctx.save_for_backward(x, v)                # the plain backward recomputes from x and v
+        else:
+            ctx.save_for_backward(x, v, partials, maxima)
         return y
 
     @staticmethod

@@ -7,7 +7,7 @@ transforms run as PyTorch on the chosen device.
 
 from .filterbank import FilterbankPlan, design_filterbank
 from .fscale import BarkScale, LinScale, LogScale, MelScale, MRSTFTScale, Scale, make_scale
-from .slicqt import SliCQT
+from .slicqt import SliCQT, make_slicqt
 
 __all__ = [
     "Scale",
@@ -20,4 +20,5 @@ __all__ = [
     "design_filterbank",
     "FilterbankPlan",
     "SliCQT",
+    "make_slicqt",
 ]

@@ -55,6 +55,18 @@ def _make_slice_window(sl_len: int, tr_area: int) -> np.ndarray:
     return tw.astype(np.float32)
 
 
+def design_plan(scale: str = "bark", fbins: int = 262, fmin: float = 32.9, fmax: float = 22050.0,
+                fgamma: float = 15.0, fs: float = 44100.0, sllen: Optional[int] = None,
+                trlen: Optional[int] = None, min_win: int = 16):
+    """(plan, sllen, trlen): the NumPy filterbank plan of a transform, with
+    the scale's suggested slice and transition lengths unless given, as the
+    JAX package designs it."""
+    scl = make_scale(scale, fbins, fmin, fmax, fgamma)
+    if sllen is None:
+        sllen, trlen = scl.suggested_sllen_trlen(fs)
+    return design_filterbank(scl, int(sllen), int(trlen), fs, min_win=min_win), int(sllen), int(trlen)
+
+
 @dataclass(frozen=True)
 class _BucketPlan:
     """Static NumPy tables of one bucket (same values as the JAX package's
@@ -92,7 +104,11 @@ class SliCQT:
         trlen: Optional[int] = None,
         min_win: int = 16,
         device="cuda",
+        plan=None,
     ):
+        """plan: what `design_plan` returns for these arguments, when the
+        caller has built it already (the oracle search does, to tell a
+        transform the plan refuses from one the port refuses)."""
         self.device = resolve_device(device)
         self.scale_name = scale
         self.fbins = fbins
@@ -102,12 +118,10 @@ class SliCQT:
         self.fs = fs
         self.min_win = min_win
 
-        scl = make_scale(scale, fbins, fmin, fmax, fgamma)
-        if sllen is None:
-            sllen, trlen = scl.suggested_sllen_trlen(fs)
-        self.sllen = int(sllen)
-        self.trlen = int(trlen)
-        self.plan: FilterbankPlan = design_filterbank(scl, self.sllen, self.trlen, fs, min_win=min_win)
+        if plan is None:
+            plan = design_plan(scale, fbins, fmin, fmax, fgamma, fs, sllen, trlen, min_win)
+        self.plan: FilterbankPlan = plan[0]
+        self.sllen, self.trlen = plan[1], plan[2]
 
         self.hhop = self.sllen // 4
         self.nn = self.plan.nn
@@ -165,7 +179,7 @@ class SliCQT:
             buckets.append(_BucketPlan(
                 f_start=b.f_start, f_count=b.f_count, M=M,
                 starts=np.asarray(starts, np.int64),
-                fwd_w=np.stack(ws).transpose(1, 0, 2).astype(np.complex64),
+                fwd_w=np.ascontiguousarray(np.stack(ws).transpose(1, 0, 2), dtype=np.complex64),
                 inv_ramp=inv_ramp,
                 w_pos=np.stack(wpos),
                 neg_lo=neg_lo, neg_hi=neg_hi, w_neg=w_neg,
@@ -365,9 +379,23 @@ class SliCQT:
 
     # -- misc ------------------------------------------------------------------
 
+    def coef_factors(self) -> List[float]:
+        """Per frequency bin, coefficients per input sample (M / Ls of the plan)."""
+        return self.plan.coef_factors()
+
+    @property
+    def fbins_actual(self) -> int:
+        """Frequency bins of the transform, the DC bin included."""
+        return self.nfreqs
+
     def config_dict(self):
         return dict(
             scale=self.scale_name, fbins=self.fbins, fmin=self.fmin,
             fmax=self.fmax, fgamma=self.fgamma, fs=self.fs,
             sllen=self.sllen, trlen=self.trlen,
         )
+
+
+def make_slicqt(scale: str = "bark", fbins: int = 262, fmin: float = 32.9, **kw) -> SliCQT:
+    """The canonical transform by default (bark-262 from 32.9 Hz); keywords as SliCQT's."""
+    return SliCQT(scale=scale, fbins=fbins, fmin=fmin, **kw)

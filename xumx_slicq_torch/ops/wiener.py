@@ -179,3 +179,51 @@ def wiener_blocks(mix_blocks: Sequence[torch.Tensor], mag_blocks: Sequence[torch
 def phasemix_blocks(mix_blocks: Sequence[torch.Tensor], mag_blocks: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     """blockwise_phasemix_sep across the bucket list (phase.py:122-126)."""
     return [blockwise_phasemix_sep(x, v) for x, v in zip(mix_blocks, mag_blocks)]
+
+
+def partition_by_m(Ms: Sequence[int], Fs: Sequence[int], n_classes: int = 8) -> List[List[int]]:
+    """Partition bucket indices into <= n_classes size classes by their time
+    resolution M, minimizing total zero padding sum F_b * (M_class - M_b)
+    via exact DP over the M-sorted order (xumx_slicq_tpu/ops/wiener.py:
+    236-268). Returns a list of index lists; each class pads its members'
+    M to the class maximum."""
+    order = sorted(range(len(Ms)), key=lambda i: Ms[i])
+    m = [Ms[i] for i in order]
+    f = [Fs[i] for i in order]
+    n = len(m)
+    K = min(n_classes, n)
+    cost = [[0] * (n + 1) for _ in range(n + 1)]
+    for i in range(n):
+        for j in range(i + 1, n + 1):
+            mc = m[j - 1]
+            cost[i][j] = sum(f[k] * (mc - m[k]) for k in range(i, j))
+    INF = float("inf")
+    dp = [[INF] * (K + 1) for _ in range(n + 1)]
+    par = [[0] * (K + 1) for _ in range(n + 1)]
+    dp[0][0] = 0
+    for j in range(1, n + 1):
+        for k in range(1, K + 1):
+            for i in range(j):
+                c = dp[i][k - 1] + cost[i][j]
+                if c < dp[j][k]:
+                    dp[j][k] = c
+                    par[j][k] = i
+    classes: List[List[int]] = []
+    j, k = n, K
+    while j > 0:
+        i = par[j][k]
+        classes.append([order[t] for t in range(i, j)])
+        j, k = i, k - 1
+    return classes[::-1]
+
+
+def wiener_blocks_grouped(mix_blocks: Sequence[torch.Tensor], mag_blocks: Sequence[torch.Tensor],
+                          iterations: int = 1, classes: Sequence[Sequence[int]] = None,
+                          n_classes: int = 8) -> List[torch.Tensor]:
+    """The JAX package's size-class grouped Wiener-EM (wiener.py:311-375),
+    kept for its API. There it was a compile-time lever: one EM chain per
+    class of M instead of one per bucket, exact per bucket. Here
+    `wiener_blocks` already runs every bucket in one grouped K2 call, each
+    with its own stability scale, so this calls it; `classes` and
+    `n_classes` are accepted and have no effect."""
+    return wiener_blocks(mix_blocks, mag_blocks, iterations)

@@ -29,6 +29,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from .device import resolve_device
 from .models import Unmix
@@ -80,12 +81,17 @@ class Separator:
     # -- chunk pipeline ------------------------------------------------------
 
     def _chunk_fn(self, audio: torch.Tensor) -> torch.Tensor:
-        """(B, C, L) on the device -> (4, B, C, L) estimates on the device."""
+        """(B, C, L) on the device -> (4, B, C, L) estimates on the device.
+        Its three stages are `record_function` ranges, which a profile
+        (utils.profile_stats) attributes device time to."""
         chunk_len = audio.shape[-1]
-        X = self.slicqt.forward(audio)                       # list[(B,C,F,S,M)]
-        Y, _ = self.model.apply(X, self._prepared)
-        # targets folded into the batch for one inverse transform
-        est = self.slicqt.backward([y.reshape((-1,) + y.shape[2:]) for y in Y], chunk_len)
+        with record_function("slicqt_forward"):
+            X = self.slicqt.forward(audio)                   # list[(B,C,F,S,M)]
+        with record_function("mask_model_and_wiener"):
+            Y, _ = self.model.apply(X, self._prepared)
+        with record_function("slicqt_backward"):
+            # targets folded into the batch for one inverse transform
+            est = self.slicqt.backward([y.reshape((-1,) + y.shape[2:]) for y in Y], chunk_len)
         return est.reshape(4, -1, est.shape[1], chunk_len)
 
     # -- public API ----------------------------------------------------------
