@@ -40,14 +40,25 @@ artifact loaded in a fresh process and held to Separator._chunk_fn with
 its launches per call; the oracle sliCQT search over 6 seeded configs on
 the card, one config's oracle SDR against the CPU; two tuning trials at
 bark-262; and utils.profile_stats held to torch.profiler's own totals on
-the track's profile. Weights are random, drawn from a seed. Any failed
-check exits non-zero.
+the track's profile. Then several devices and ranks: the 236 s track
+through Separator(devices=[card, card]) against the single-device stems
+(after the track's phases); the canonical CDAE's weights written as the
+JAX package's params.msgpack and served from it against the .pth route;
+entry()'s forward step on the card; the trainer's step on 2 ranks sharing
+the card over gloo, data-parallel (the CDAE at batch 32 of 2 s and the
+LSTM at a small batch) and target-parallel (tp = 2), against the same steps
+in one process, with step and collective times, each rank's memory and
+launches; and the Cadenza runner (enhance, HAAQI in 2 shards, merge) for
+one seeded 30 s song and 2 listeners. Weights are random, drawn from a
+seed. Any failed check exits non-zero.
 
     python3 chip_smoke.py --phases export_cdae,slicqfinder
 
-runs only the named tool phases after the build (export_cdae, export_lstm,
-slicqfinder, tuning, profile_stats), for development, and prints no result
-line.
+runs only the named phases after the build (export_cdae, export_lstm,
+slicqfinder, tuning, profile_stats, separator_devices, msgpack_weights,
+entry, mesh, cadenza; and on a machine with several cards mesh_cards and
+separator_devices_cards, one rank or replica a card, NCCL), for
+development, and prints no result line.
 
 Output: one line per phase; before the last line, the card's name and power
 limit as nvidia-smi reports them and one JSON object with the kernels'
@@ -881,7 +892,7 @@ def trainer_cli(dev, clip, lstm: bool = False):
     d = ROOT / "build" / f"chip_smoke_{name}"
     shutil.rmtree(d, ignore_errors=True)
     args = ["--synthetic-dataset", "--batch-size", "8", "--epochs", "1", "--max-batches-per-epoch", "3",
-            "--debug", "--model-path", str(d), "--quiet"] + (["--lstm"] if lstm else [])
+            "--debug", "--model-path", str(d), "--quiet", "--n-devices", "1"] + (["--lstm"] if lstm else [])
     t0 = time.time()
     train1, valid1 = training_main(args)
     args[args.index("--epochs") + 1] = "2"
@@ -1353,9 +1364,364 @@ def tuning_phase(dev):
     shutil.rmtree(d, ignore_errors=True)
 
 
+# -- slice 10: ranks, several devices, params.msgpack, entry, Cadenza ------------------------------------
+
+MESH_STEPS = 4                  # dp_train / tp_train: train steps at the canonical batch (32 of 2.0 s)
+MESH_LSTM_BATCH, MESH_LSTM_STEPS = 4, 2   # dp_train's LSTM run: the canonical LSTM at a small batch
+# losses across ranks against one process (tests/test_training.py:297-303, 325): the first step, the trajectory
+MESH_FIRST_TOL, MESH_TRAJ_TOL, TP_TOL = 2e-4, 1e-3, 2e-4
+# the first step's gradients across ranks against one process, tensor by tensor (AdamW's update, and so the losses,
+# cannot see a reduction that scales a gradient): |g - g1| <= rtol |g1| + floor |all of g1|. The faults it is for
+# scale a gradient by 2, 1/2 or tp; the floor covers tensors whose gradient is rounding noise (BatchNorm cancels it)
+MESH_GRAD_RTOL, MESH_GRAD_FLOOR = 1e-2, 1e-5
+DEVICES_TOL = 2e-5              # separator_devices against one device (tests/test_separator.py:72)
+# msgpack_weights: the same weights (checked bit-equal) in two model instances on the card; their stems differed by
+# 3.0e-8 on 0.1-RMS input in the first run (the instances' cuDNN and K2 runs are not bit-reproducible)
+MSGPACK_STEM_TOL = 1e-6
+CADENZA_SECONDS, CADENZA_LISTENERS = 30, 2
+
+
+def _mesh_batches(length: int, batch: int, steps: int):
+    """The global batches of a mesh phase (each with every loss term's
+    inputs: a silent stem), and one validation batch of 2 items."""
+    return [_train_batch(20 + i, length, batch) for i in range(steps)], _train_batch(99, length, 2)
+
+
+def _mesh_run(dev, lstm: bool, batch: int, steps: int, mesh=None) -> dict:
+    """`steps` train steps of the canonical model (CDAE or LSTM, seed 0;
+    every loss term: SD-SDR through K1) on the global batches of
+    `_mesh_batches`, in one process or as one rank of `mesh` (its rows of
+    each batch), then an eval-mode validation loss on one batch. Returns
+    the losses, host ms a step (the step's loss read back), the collectives'
+    calls, bytes and host ms a step, peak memory, the kernels' launches and
+    the first step's gradients after the reduction, gathered into the
+    one-process layout, on the host (rank 0 and one process; None on the
+    other ranks)."""
+    from xumx_slicq_torch.kernels.lstm_recurrence import lstm_recurrence, lstm_recurrence_backward
+    from xumx_slicq_torch.kernels.synth_assembly import synth_assembly, synth_assembly_backward
+    from xumx_slicq_torch.kernels.wiener_em import wiener_em, wiener_em_backward
+    from xumx_slicq_torch.models import Unmix
+    from xumx_slicq_torch.ops.slicqt import SliCQT
+    from xumx_slicq_torch.parallel.mesh import shard_batch
+    from xumx_slicq_torch.training import dropout_seed, make_train_step
+
+    counters = {"synth_assembly": synth_assembly, "synth_assembly_backward": synth_assembly_backward,
+                "wiener_em": wiener_em, "wiener_em_backward": wiener_em_backward,
+                "lstm_recurrence": lstm_recurrence, "lstm_recurrence_backward": lstm_recurrence_backward}
+    length = int(TRAIN_SECONDS * 44100)
+    slicqt = SliCQT(device=dev)
+    model = Unmix(slicqt.block_shapes(batch, 2, length), lstm=lstm, seed=0, device=dev, mesh=mesh)
+    opt = torch.optim.AdamW(model.parameters(), lr=1e-3, weight_decay=1e-5)
+    step, valid = make_train_step(slicqt, model, opt, sdr_mcoef=0.1, mesh=mesh)
+    batches, vbatch = _mesh_batches(length, batch, steps)
+    dropout = torch.Generator(device=dev) if lstm else None
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    for fn in counters.values():
+        fn.launches = 0
+    losses, ms, coll_ms, coll_calls, coll_bytes, grads = [], [], [], [], 0, None
+    for i, b in enumerate(batches):
+        if dropout is not None:
+            dropout.manual_seed(dropout_seed(42, 1, i))
+        rows = torch.from_numpy(shard_batch(b, mesh) if mesh is not None else b).to(dev)
+        before = dict(mesh.stats) if mesh is not None else None
+        t0 = time.time()
+        losses.append(float(step(rows, dropout)))
+        ms.append((time.time() - t0) * 1e3)
+        if mesh is not None:
+            coll_ms.append((mesh.stats["seconds"] - before["seconds"]) * 1e3)
+            coll_calls.append(mesh.stats["calls"] - before["calls"])
+            coll_bytes += mesh.stats["bytes"] - before["bytes"]
+        if i == 0:                     # the step leaves its reduced gradients in .grad
+            grads = {n: p.grad for n, p in model.named_parameters()}
+            grads = mesh.gather_state(grads) if mesh is not None else grads
+            grads = {n: g.cpu() for n, g in grads.items()} if mesh is None or mesh.rank == 0 else None
+    launches = {k: fn.launches for k, fn in counters.items()}
+    vloss = float(valid(torch.from_numpy(vbatch).to(dev)))
+    return dict(losses=losses, valid_loss=vloss, step_ms=ms, collective_ms=coll_ms, collective_calls=coll_calls,
+                collective_bytes=coll_bytes, max_memory_allocated_bytes=torch.cuda.max_memory_allocated(dev),
+                launches=launches, params=model.num_params(), grads=grads)
+
+
+def _mesh_rank(rank: int, devices: list) -> dict:
+    """One rank of the dp_train and tp_train phases: the CDAE over dp =
+    len(devices), the LSTM likewise at a small batch, then the CDAE over
+    tp = 2 (dp = len(devices) / 2), each in a mesh of its own over the same
+    ranks."""
+    from xumx_slicq_torch.parallel.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False          # as the one-process runs: a fresh process has
+    torch.backends.cudnn.allow_tf32 = False                # cuDNN's TF32 on
+    dp = make_mesh(len(devices), 1, devices)
+    out = {"cdae": _mesh_run(dp.device, False, TRAIN_BATCH, MESH_STEPS, dp)}
+    torch.cuda.empty_cache()
+    out["lstm"] = _mesh_run(dp.device, True, MESH_LSTM_BATCH, MESH_LSTM_STEPS, dp)
+    torch.cuda.empty_cache()
+    out["tp"] = _mesh_run(dp.device, False, TRAIN_BATCH, MESH_STEPS, make_mesh(len(devices), 2, devices))
+    return out
+
+
+def mesh_phases(dev, devices=None):
+    """dp_train and tp_train: the trainer's step across ranks against the
+    same steps in one process on the card. By default 2 ranks on this one
+    card over gloo (NCCL refuses two ranks on one GPU); `devices`, one card
+    a rank (NCCL), is the development phase `mesh_cards`."""
+    from xumx_slicq_torch.parallel.mesh import backend_for, spawn
+
+    one = {"cdae": _mesh_run(dev, False, TRAIN_BATCH, MESH_STEPS),
+           "lstm": _mesh_run(dev, True, MESH_LSTM_BATCH, MESH_LSTM_STEPS)}
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    devices = devices or [f"cuda:{dev.index or 0}"] * 2
+    ranks = spawn(_mesh_rank, devices, args=(devices,))
+    spawn_s = time.time() - t0
+
+    def grad_errors(got, ref):
+        """The worst tensor's |g - g1| / (rtol |g1| + floor |all of g1|),
+        and the largest |g - g1| / |g1| over the tensors above the floor."""
+        whole = float(torch.sqrt(sum(g.double().norm() ** 2 for g in ref.values())))
+        check(got.keys() == ref.keys(), f"gradients of {sorted(got)} against {sorted(ref)}")
+        errs = {k: (float((got[k] - g).norm()), float(g.norm())) for k, g in ref.items()}
+        ratio = {k: e / (MESH_GRAD_RTOL * n + MESH_GRAD_FLOOR * whole) for k, (e, n) in errs.items()}
+        worst = max(ratio, key=ratio.get)
+        rel = max((e / n for e, n in errs.values() if n > MESH_GRAD_FLOOR * whole), default=0.0)
+        return dict(grad_worst_ratio=ratio[worst], grad_worst_tensor=worst, grad_max_rel=rel, grad_norm=whole,
+                    grad_tensors=len(ref))
+
+    def summary(name, runs, ref):
+        r0 = runs[0]
+        first = abs(r0["losses"][0] - ref["losses"][0]) / abs(ref["losses"][0])
+        traj = max(abs(a - b) / abs(b) for a, b in zip(r0["losses"] + [r0["valid_loss"]],
+                                                       ref["losses"] + [ref["valid_loss"]]))
+        return dict(losses=r0["losses"], one_process_losses=ref["losses"], valid_loss=r0["valid_loss"],
+                    one_process_valid_loss=ref["valid_loss"], first_step_rel=first, max_rel=traj,
+                    rank_losses_equal=all(r["losses"] == r0["losses"] for r in runs),
+                    step_ms=[r["step_ms"] for r in runs], one_process_step_ms=ref["step_ms"],
+                    median_step_ms=float(np.median(r0["step_ms"][1:])),
+                    one_process_median_step_ms=float(np.median(ref["step_ms"][1:])),
+                    collective_ms=[r["collective_ms"] for r in runs], collective_calls=r0["collective_calls"],
+                    collective_mbytes=r0["collective_bytes"] / 1e6,
+                    rank_max_memory_allocated_bytes=[r["max_memory_allocated_bytes"] for r in runs],
+                    one_process_max_memory_allocated_bytes=ref["max_memory_allocated_bytes"],
+                    rank_launches=[r["launches"] for r in runs], one_process_launches=ref["launches"],
+                    **grad_errors(r0["grads"], ref["grads"]))
+
+    res = {k: summary(k, [r[k] for r in ranks], one["cdae" if k == "tp" else k]) for k in ("cdae", "lstm", "tp")}
+    # Mesh.stats times each collective call on the host: gloo returns once the reduce is done, NCCL once queued
+    timing = "host wait" if backend_for(devices) == "gloo" else "host enqueue"
+    phase("dp_train", ranks=len(devices), backend=backend_for(devices), collective_ms_is=timing, devices=devices,
+          batch=TRAIN_BATCH,
+          steps=MESH_STEPS, lstm_batch=MESH_LSTM_BATCH, lstm_steps=MESH_LSTM_STEPS, spawn_and_run_s=spawn_s,
+          cdae=res["cdae"], lstm=res["lstm"], first_tol=MESH_FIRST_TOL, tol=MESH_TRAJ_TOL,
+          grad_rtol=MESH_GRAD_RTOL, grad_floor=MESH_GRAD_FLOOR)
+    phase("tp_train", ranks=len(devices), tp=2, dp=len(devices) // 2, backend=backend_for(devices),
+          collective_ms_is=timing, batch=TRAIN_BATCH,
+          steps=MESH_STEPS, tol=TP_TOL, grad_rtol=MESH_GRAD_RTOL, grad_floor=MESH_GRAD_FLOOR, **res["tp"])
+    for name, r, first, tol in (("dp_train cdae", res["cdae"], MESH_FIRST_TOL, MESH_TRAJ_TOL),
+                                ("dp_train lstm", res["lstm"], MESH_FIRST_TOL, MESH_TRAJ_TOL),
+                                ("tp_train", res["tp"], TP_TOL, TP_TOL)):
+        check(all(np.isfinite(r["losses"])) and r["rank_losses_equal"], f"{name}: rank losses {r['losses']}")
+        check(r["first_step_rel"] <= first, f"{name}: first step {r['first_step_rel']} from one process > {first}")
+        check(r["max_rel"] <= tol, f"{name}: losses {r['max_rel']} from one process > {tol}")
+        check(r["grad_worst_ratio"] <= 1.0, f"{name}: the first step's gradient of {r['grad_worst_tensor']} is "
+              f"{r['grad_worst_ratio']} times its bound from one process's")
+        path = ["synth_assembly", "synth_assembly_backward", "wiener_em", "wiener_em_backward"]
+        if name == "dp_train lstm":
+            path += ["lstm_recurrence", "lstm_recurrence_backward"]
+        for launches in r["rank_launches"]:
+            for k in path:
+                check(launches[k] > 0, f"{name}: {k} was not launched on a rank: {launches}")
+
+
+def separator_devices(sep, track, devices=None):
+    """The 236 s track through Separator(devices=[card, card]) (a replica a
+    device, the chunks in waves: here one wave, a chunk batch of 2 a
+    device) against the single-device Separator `sep`; `devices`, one
+    replica a card, is the development phase `separator_devices_cards`."""
+    from xumx_slicq_torch.kernels.synth_assembly import synth_assembly
+    from xumx_slicq_torch.kernels.wiener_em import wiener_em
+
+    devices = devices or [sep.device] * 2
+    many = sep.__class__(sep.slicqt, sep.model, chunk_size=sep.chunk_size, devices=devices)
+    # the chunk batches of one demix (JAX separator.py:164-185): waves of up to 8 n_dev chunks, each device
+    # taking the smallest bucket b with b n_dev >= the wave's chunks
+    calls, left = [], -(-track.shape[-1] // sep.chunk_size)
+    while left > 0:
+        take = min(left, 8 * len(devices))
+        nb = next(b for b in (1, 2, 4, 8) if b * len(devices) >= take)
+        calls += [nb] * -(-take // nb)
+        left -= take
+    ref = sep(track)
+    many(track)                                                # warm-up: the chunk batch of 2
+    torch.cuda.synchronize()
+    synth_assembly.launches = wiener_em.launches = 0
+    times = []
+    for _ in range(3):
+        t0 = time.time()
+        est = many(track)
+        times.append(time.time() - t0)
+        if _ == 0:
+            launches = {"synth_assembly": synth_assembly.launches, "wiener_em": wiener_em.launches}
+    diff = float(np.abs(est - ref).max())
+    phase("separator_devices", devices=[str(d) for d in devices], samples=track.shape[-1], chunk_batches=calls,
+          max_abs_diff=diff, tol=DEVICES_TOL, s_per_track=times, launches=launches)
+    check(est.shape == ref.shape and np.isfinite(est).all(), "separator_devices: bad stems")
+    check(diff <= DEVICES_TOL, f"separator_devices: {diff} from the single-device Separator > {DEVICES_TOL}")
+    check(launches["synth_assembly"] == len(calls) and launches["wiener_em"] == 3 * len(calls),
+          f"separator_devices: one demix launched {launches}, expected K1 once and K2 3 times for each of its "
+          f"{len(calls)} chunk batches")
+
+
+def msgpack_weights(dev, clip):
+    """The canonical CDAE's directory written with the port's
+    save_model_weights (the JAX package's params.msgpack only), loaded on
+    the card, against the reference-named .pth route of the same weights."""
+    import shutil
+
+    from xumx_slicq_torch.separator import Separator, save_model_weights
+
+    pth = _write_model_dir(ROOT / "build" / "chip_smoke_pth", lstm=False)
+    msg = ROOT / "build" / "chip_smoke_msgpack"
+    shutil.rmtree(msg, ignore_errors=True)
+    msg.mkdir(parents=True)
+    shutil.copy(pth / "xumx_slicq_v2.json", msg)
+    ref = Separator.load(model_path=pth, device=dev)
+    t0 = time.time()
+    path = save_model_weights(msg, ref.model)
+    write_s = time.time() - t0
+    t0 = time.time()
+    ours = Separator.load(model_path=msg, device=dev)
+    load_s = time.time() - t0
+    sd, ref_sd = ours.model.state_dict(), ref.model.state_dict()
+    same = sorted(sd) == sorted(ref_sd) and all(torch.equal(sd[k], ref_sd[k]) for k in ref_sd)
+    a, b, b2 = ours(clip), ref(clip), ref(clip)
+    diff, repeat = float(np.abs(a - b).max()), float(np.abs(b2 - b).max())
+    phase("msgpack_weights", files=sorted(p.name for p in msg.iterdir()), bytes=path.stat().st_size,
+          write_s=write_s, load_s=load_s, weights_bit_equal=same, max_abs_diff=diff,
+          pth_route_repeat_max_abs_diff=repeat, tol=MSGPACK_STEM_TOL)
+    check(same, "msgpack_weights: the weights read from params.msgpack differ from the .pth route's")
+    check(diff <= MSGPACK_STEM_TOL, f"msgpack_weights: stems differ from the .pth route's by {diff}")
+    shutil.rmtree(msg, ignore_errors=True)
+    shutil.rmtree(pth, ignore_errors=True)
+
+
+def entry_phase():
+    """xumx_slicq_torch.entry.entry(): its forward step once on the card."""
+    from xumx_slicq_torch.entry import entry
+    from xumx_slicq_torch.kernels.synth_assembly import synth_assembly
+    from xumx_slicq_torch.kernels.wiener_em import wiener_em
+
+    fn, args = entry()
+    synth_assembly.launches = wiener_em.launches = 0
+    t0 = time.time()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    first_s = time.time() - t0
+    launches = {"synth_assembly": synth_assembly.launches, "wiener_em": wiener_em.launches}
+    phase("entry", shape=list(out.shape), device=str(out.device), finite=bool(torch.isfinite(out).all()),
+          first_call_s=first_s, launches=launches)
+    check(tuple(out.shape) == (4, 1, 2, 88200) and out.is_cuda and bool(torch.isfinite(out).all()),
+          "entry: bad output")
+    check(launches["synth_assembly"] == 1 and launches["wiener_em"] == 3, f"entry: launches {launches}")
+
+
+def _cadenza_evaluate(config_overrides: dict, batch: int, batch_size: int):
+    """One shard of the recipe's evaluation, in a process of its own (the
+    recipe's own sharding, cadenza/final_evaluation.sh)."""
+    from xumx_slicq_torch.cadenza.config import load_config
+    from xumx_slicq_torch.cadenza.evaluate import evaluate
+
+    overrides = dict(config_overrides, evaluate={"batch": batch, "batch_size": batch_size})
+    t0 = time.time()
+    evaluate(load_config(overrides=overrides))
+    return time.time() - t0
+
+
+def cadenza_phase(dev):
+    """The Cadenza runner end to end with the canonical CDAE on the card:
+    enhance (demix, NAL-R per listener, 24 kHz stems and a 32 kHz remix)
+    one seeded 30 s song for 2 listeners, evaluate HAAQI in 2 shards in
+    processes of their own, merge. Separation seconds on the card against
+    NAL-R and HAAQI seconds on the host."""
+    import shutil
+    from concurrent.futures import ProcessPoolExecutor
+    from multiprocessing import get_context
+
+    import xumx_slicq_torch.cadenza.enhance as enhance_mod
+    from xumx_slicq_torch.audio import save_audio
+    from xumx_slicq_torch.cadenza.config import load_config
+    from xumx_slicq_torch.cadenza.merge_batches_results import merge
+
+    root = ROOT / "build" / "chip_smoke_cadenza"
+    shutil.rmtree(root, ignore_errors=True)
+    song = "Seeded Song - Noise"
+    d = root / "musdb" / "train" / song
+    d.mkdir(parents=True)
+    rng = np.random.default_rng(7)
+    n = CADENZA_SECONDS * 44100
+    t = np.arange(n) / 44100
+    stems = {}
+    for i, s in enumerate(("bass", "drums", "other", "vocals")):
+        tone = np.sin(2 * np.pi * [80, 300, 1000, 2000][i] * t) * (0.5 + 0.5 * np.sin(2 * np.pi * 0.5 * t + i))
+        stems[s] = (0.05 * np.stack([tone, np.roll(tone, 50 * (i + 1))]) + 0.01 * rng.standard_normal((2, n)))
+        stems[s] = stems[s].astype(np.float32)
+    save_audio(d / "mixture.wav", sum(stems.values()), 44100)
+    for s, a in stems.items():
+        save_audio(d / f"{s}.wav", a, 44100)
+    meta = root / "metadata"
+    meta.mkdir()
+    (meta / "musdb18.valid.json").write_text(json.dumps([{"Track Name": song, "Split": "train"}]))
+    cfs = [250, 500, 1000, 2000, 4000, 6000]
+    listeners = {f"L00{k}": {"name": f"L00{k}", "audiogram_cfs": cfs, "audiogram_levels_l": lv,
+                             "audiogram_levels_r": lv[::-1]}
+                 for k, lv in enumerate(([20, 20, 30, 40, 50, 55], [10, 15, 25, 45, 60, 70])[:CADENZA_LISTENERS], 1)}
+    (meta / "listeners.valid.json").write_text(json.dumps(listeners))
+    model = _write_model_dir(root / "model", lstm=False)
+    overrides = {"path": {"music_dir": str(root / "musdb"), "metadata_dir": str(meta),
+                          "music_valid_file": str(meta / "musdb18.valid.json"),
+                          "listeners_valid_file": str(meta / "listeners.valid.json"),
+                          "exp_folder": str(root / "exp")},
+                 "separator": {"model_path": str(model), "device": str(dev)}}
+    cfg = load_config(overrides=overrides)
+
+    timed = {"separate": 0.0, "nalr": 0.0}
+
+    def timer(key, fn):
+        def wrapped(*a, **k):
+            t0 = time.time()
+            try:
+                return fn(*a, **k)
+            finally:
+                timed[key] += time.time() - t0
+        return wrapped
+
+    orig = (enhance_mod.decompose_signal, enhance_mod.process_stems_for_listener)
+    enhance_mod.decompose_signal = timer("separate", orig[0])
+    enhance_mod.process_stems_for_listener = timer("nalr", orig[1])
+    try:
+        t0 = time.time()
+        enhance_mod.enhance(cfg)
+        enhance_s = time.time() - t0
+    finally:
+        enhance_mod.decompose_signal, enhance_mod.process_stems_for_listener = orig
+    files = {k: len(list((root / "exp" / "enhanced_signals" / k / song).glob("*.wav"))) for k in listeners}
+    t0 = time.time()
+    with ProcessPoolExecutor(2, mp_context=get_context("spawn")) as pool:
+        shard_s = list(pool.map(_cadenza_evaluate, [overrides] * 2, [0, 1], [2, 2]))
+    evaluate_s = time.time() - t0
+    rows = merge(str(root / "exp")).read_text().splitlines()[1:]
+    scores = [float(r.split(",")[2]) for r in rows]
+    phase("cadenza", song_seconds=CADENZA_SECONDS, listeners=len(listeners), wav_files_per_pair=files,
+          haaqi=scores, enhance_s=enhance_s, separation_s_card=timed["separate"], nalr_s_host=timed["nalr"],
+          evaluate_wall_s=evaluate_s, haaqi_s_host_per_shard=shard_s)
+    check(all(v == 9 for v in files.values()), f"cadenza: wav files per pair {files}, expected 9")
+    check(len(scores) == len(listeners) and all(0.0 <= s <= 1.0 for s in scores), f"cadenza: HAAQI {scores}")
+    shutil.rmtree(root, ignore_errors=True)
+
+
 def run_only(names, dev, slicqt):
     """A development run (python3 chip_smoke.py --phases a,b): the named
-    tool phases alone after the build, with no result line."""
+    tool and slice-10 phases alone after the build, with no result line."""
     from xumx_slicq_torch.models import Unmix
     from xumx_slicq_torch.separator import Separator
 
@@ -1366,9 +1732,24 @@ def run_only(names, dev, slicqt):
         chunk = sep.chunk_size
         profile_stats_phase(*breakdown(sep, slicqt, track, -(-track.shape[-1] // chunk), chunk))
 
+    def devices_only(devices=None):
+        sep = Separator(slicqt, Unmix(slicqt.block_shapes(1, 2, 2 * 44100), seed=0, device=dev), device=dev)
+        separator_devices(sep, (np.random.default_rng(0).standard_normal((1, 2, TRACK_SECONDS * 44100)) * 0.1)
+                          .astype(np.float32), devices)
+
+    def cards():
+        n = torch.cuda.device_count()
+        check(n >= 2, f"the *_cards phases need 2 or more cards, found {n}")
+        return [f"cuda:{i}" for i in range(n)]
+
+    clip = (np.random.default_rng(1).standard_normal((1, 2, 4 * 44100)) * 0.1).astype(np.float32)
     table = dict(export_cdae=lambda: export_phase(dev, False), export_lstm=lambda: export_phase(dev, True),
                  slicqfinder=lambda: slicqfinder_phase(dev), tuning=lambda: tuning_phase(dev),
-                 profile_stats=profile_only)
+                 profile_stats=profile_only, mesh=lambda: mesh_phases(dev), separator_devices=devices_only,
+                 mesh_cards=lambda: mesh_phases(dev, cards()),
+                 separator_devices_cards=lambda: devices_only([torch.device(d) for d in cards()]),
+                 msgpack_weights=lambda: msgpack_weights(dev, clip), entry=entry_phase,
+                 cadenza=lambda: cadenza_phase(dev))
     for name in names:
         table[name]()
     print("partial run (--phases): no result line")
@@ -1557,6 +1938,7 @@ def main(argv=()):
         kernels[name]["launches"] = n
     check(launches["wiener_em"] <= 3, f"K2 made {launches['wiener_em']} device launches for one chunk batch")
     profile_stats_phase(*breakdown(sep, slicqt, track, batch, chunk))
+    separator_devices(sep, track)
 
     # -- phase 8: realtime Separator ------------------------------------------
     sep_rt = Separator(slicqt, Unmix(shapes, realtime=True, seed=0, device=dev), device=dev)
@@ -1610,6 +1992,15 @@ def main(argv=()):
     slicqfinder_phase(dev)
     torch.cuda.empty_cache()
     tuning_phase(dev)
+
+    # -- phases 31-36: ranks, params.msgpack, entry, the Cadenza runner --------
+    torch.cuda.empty_cache()
+    msgpack_weights(dev, clip)
+    entry_phase()
+    torch.cuda.empty_cache()
+    mesh_phases(dev)
+    torch.cuda.empty_cache()
+    cadenza_phase(dev)
 
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
              "bound_ms", "bound_by", "library_ms"]

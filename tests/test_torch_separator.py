@@ -106,29 +106,32 @@ for m in pkgutil.walk_packages(xumx_slicq_torch.__path__, "xumx_slicq_torch."):
         skipped.append(m.name)
 import chip_smoke
 import bench_torch
-bad = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", "flax", "xumx_slicq_tpu", "cadenza"))
+bad = sorted(k for k in sys.modules
+             if k.split(".")[0] in ("jax", "jaxlib", "flax", "msgpack", "yaml", "xumx_slicq_tpu", "cadenza"))
 print(json.dumps({"skipped": skipped, "bad": bad,
                   "ported": sorted(k for k in sys.modules if k.startswith("xumx_slicq_torch"))}))
 """
 
 
 def test_port_never_imports_jax():
-    """Every port module (the trainer's, the LSTM's, the evaluator's and the
-    tools' among them), chip_smoke.py and bench_torch.py import without jax,
-    flax, the JAX package or cadenza; only the Triton module needs triton
-    (absent here)."""
+    """Every port module (the trainer's, the LSTM's, the evaluator's, the
+    tools', the mesh's and the Cadenza runner's among them), chip_smoke.py
+    and bench_torch.py import without jax, flax, msgpack, yaml, the JAX
+    package or cadenza; only the Triton module needs triton (absent here)."""
     res = subprocess.run([sys.executable, "-c", _ISOLATION, str(ROOT)], capture_output=True, text=True,
                          timeout=120, cwd=ROOT)
     assert res.returncode == 0, res.stderr
     out = json.loads(res.stdout.strip().splitlines()[-1])
     assert out["bad"] == []
-    assert len(out["ported"]) >= 36
+    assert len(out["ported"]) >= 46
     assert {f"xumx_slicq_torch.{m}" for m in ("data", "loss", "training", "models.lstm",
                                               "kernels.lstm_recurrence", "evaluation",
                                               "ops.bsseval", "export", "slicqfinder", "tuning",
                                               "visualization", "demixui", "ops.wiener_contrib",
                                               "utils.runtime", "utils.profile_stats",
-                                              "kernels.ops")} <= set(out["ported"])
+                                              "kernels.ops", "parallel.mesh", "entry", "cadenza.enhance",
+                                              "cadenza.haaqi", "cadenza.config", "models.flax_msgpack")} \
+        <= set(out["ported"])
     try:
         import triton  # noqa: F401
         assert out["skipped"] == []

@@ -236,6 +236,31 @@ def test_tuning_cpu_smoke(tmp_path):
     assert m["args"]["hidden_size_1"] == study["trials"][0]["params"]["hidden_size_1"]
 
 
+def test_tuning_trial_trains_in_one_process_on_several_cards(monkeypatch, tmp_path):
+    """On a host with 4 cards a trial still trains in one process (its
+    pruning callback cannot follow ranks), where the trainer's default
+    --n-devices -1 would take every card. The host here claims 4 cards and
+    the trainer's "cuda" resolves to the CPU."""
+    import xumx_slicq_torch.device as dev_mod
+    import xumx_slicq_torch.training as T
+    from xumx_slicq_torch.tuning import tuning_main
+
+    def on_cpu(device="cuda"):
+        return torch.device("cpu")
+
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    monkeypatch.setattr(dev_mod, "resolve_device", on_cpu)
+    monkeypatch.setattr(T, "resolve_device", on_cpu)
+    tuning_main([
+        "--study-dir", str(tmp_path), "--n-trials", "1", "--trial-epochs", "1",
+        "--batch-size", "4", "--seq-dur", "0.3", "--fscale", "mel", "--fbins", "12", "--fmin", "200.0",
+        "--synthetic-dataset", "--max-batches-per-epoch", "1",
+    ])
+    (trial,) = json.loads((tmp_path / "study.json").read_text())["trials"]
+    assert "error" not in trial, trial["error"]
+    assert np.isfinite(trial["value"])
+
+
 # -- wiener_contrib and the grouped Wiener API ------------------------------------
 
 

@@ -247,7 +247,10 @@ def test_trained_dir_loads_in_both_packages(trained_dir):
     np.testing.assert_allclose(ours, ref, rtol=0, atol=1e-5)
 
 
-@pytest.mark.parametrize("flag", [["--n-devices", "2"], ["--tp", "2"]])
+@pytest.mark.parametrize("flag", [["--n-devices", "3"], ["--tp", "2"]])
 def test_unported_flags_raise(tmp_path, flag):
-    with pytest.raises(NotImplementedError):
+    """Multi-rank training is ported (tests/test_torch_parallel.py); a mesh
+    the batch (4, not divisible by dp = 3) or the devices (one CPU for
+    --tp 2 with --n-devices -1) cannot hold raises, as in the JAX trainer."""
+    with pytest.raises(ValueError):
         training_main(TRAIN_ARGS + ["--model-path", str(tmp_path), "--epochs", "1"] + flag)

@@ -93,3 +93,56 @@ def one_blas_thread():
 
     with threadpool_limits(limits=1, user_api="blas"):
         yield
+
+
+def fail_on_rank(rank: int, which: int) -> int:
+    """A rank function for parallel.mesh.spawn (importable by the ranks):
+    rank `which` raises, the others return their rank."""
+    if rank == which:
+        raise RuntimeError(f"rank {rank} fails on purpose")
+    return rank
+
+
+def step_gradients(mesh, lstm: bool, batch: np.ndarray) -> dict:
+    """One train step (every loss term, SD-SDR included) of the seeded
+    mel-12 model on the global batch (B, 5, 2, L), in one process (mesh
+    None) or as a rank of `mesh` on its rows: the gradients after the
+    reduction across ranks, gathered into the one-process layout. The LSTM
+    draws its dropout from a generator seeded alike on every rank."""
+    from xumx_slicq_torch.models import Unmix
+    from xumx_slicq_torch.ops.slicqt import SliCQT
+    from xumx_slicq_torch.parallel.mesh import shard_batch
+    from xumx_slicq_torch.training import make_train_step
+
+    slicqt = SliCQT(device=DEVICE, **MEL12)
+    model = Unmix(slicqt.block_shapes(batch.shape[0], 2, batch.shape[-1]), lstm=lstm, seed=0, device=DEVICE,
+                  mesh=mesh)
+    step, _ = make_train_step(slicqt, model, torch.optim.SGD(model.parameters(), lr=0.0), sdr_mcoef=0.1,
+                              mesh=mesh)
+    rows = shard_batch(batch, mesh) if mesh is not None else batch
+    step(torch.from_numpy(rows), torch.Generator().manual_seed(7) if lstm else None)
+    grads = {name: p.grad for name, p in model.named_parameters()}
+    return mesh.gather_state(grads) if mesh is not None else grads
+
+
+def grad_batch() -> np.ndarray:
+    """The global batch of the gradient comparisons: 4 seeded 0.3 s items.
+    Each rank makes its own: an argument of more than a pipe's buffer
+    would hold every rank's start until the one before it has imported
+    torch."""
+    return (np.random.default_rng(0).standard_normal((4, 5, 2, TINY_LEN)) * 0.1).astype(np.float32)
+
+
+def train_then_gradients(rank: int, train_argv: list, devices: list, cases: list):
+    """A rank function for parallel.mesh.spawn, which spares the tests a
+    spawn: this rank of the trainer's run over `devices` (as training_main
+    runs its ranks), then `step_gradients` on `grad_batch()` for each
+    (n ranks, tp, lstm) case, each over a mesh of its own on the same
+    ranks. Rank 0 returns (the run's loss histories, the cases'
+    gradients), the others None."""
+    from xumx_slicq_torch.parallel.mesh import make_mesh
+    from xumx_slicq_torch.training import _train_rank, build_argparser
+
+    losses = _train_rank(rank, build_argparser().parse_args(train_argv), devices)
+    grads = [step_gradients(make_mesh(n, tp), lstm, grad_batch()) for n, tp, lstm in cases]
+    return (losses, grads) if rank == 0 else None

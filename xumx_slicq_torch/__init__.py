@@ -18,6 +18,10 @@ the host or on the card. The tools: `export` (torch.export artifacts of the
 chunk pipeline, the kernels as registered ops of `kernels.ops`),
 `slicqfinder` (oracle transform search), `tuning`, `visualization`,
 `demixui`, `ops.wiener_contrib` and `utils` (the profiler helpers).
+`parallel` runs training across ranks (torch.distributed: data and target
+parallelism) and `separator` demixes across devices; `models.convert` reads
+and writes the JAX package's `params.msgpack`; `entry` holds the quick
+entry points; `cadenza` is the Cadenza hearing-aid recipe.
 
 Entry points take an explicit `device` ("cuda" by default) and raise when no
 card is present unless the caller asked for "cpu".

@@ -12,7 +12,6 @@ from typing import Optional
 import numpy as np
 import torch
 from scipy.io import wavfile
-from scipy.signal import resample_poly
 
 # PCM full-scale factors; 1/2^k is exact in binary, so int -> float32
 # followed by a float32 multiply matches the float64 route
@@ -143,5 +142,7 @@ def preprocess_audio(audio: np.ndarray, rate: Optional[float] = None, model_rate
         audio = np.repeat(audio, 2, axis=1)
     if rate is not None and model_rate is not None and rate != model_rate:
         g = gcd(int(rate), int(model_rate))
+        from scipy.signal import resample_poly      # here: scipy.signal takes seconds to import, a rank's start-up
+
         audio = resample_poly(audio, int(model_rate) // g, int(rate) // g, axis=-1).astype(np.float32)
     return audio

@@ -23,6 +23,17 @@ def resolve_device(device="cuda") -> torch.device:
     raise ValueError(f"unsupported device {device!r}: use 'cuda' or 'cpu'")
 
 
+def same_device(a: torch.device, b: torch.device) -> bool:
+    """Whether two devices are one: "cuda" without an index is the current
+    card, so it equals "cuda:<current index>"."""
+    if a.type != b.type:
+        return False
+    if a.type != "cuda":
+        return True
+    current = torch.cuda.current_device()
+    return (current if a.index is None else a.index) == (current if b.index is None else b.index)
+
+
 def use_device(dev: torch.device):
     """Make `dev` the calling thread's current card (each thread has its
     own); a no-op on the host and for "cuda" without an index, which means

@@ -1,8 +1,9 @@
 """Inference CLI: demix a directory of wav files into per-stem wavs.
 
 Port of xumx_slicq_tpu/inference.py with `--device {cuda,cpu}` in place of
-`--runtime-backend`. Reports the average per-track wall-clock, as the
-reference does (README.md:154-160).
+`--runtime-backend`; `--n-devices N` fans each track's chunks over
+cuda:0..N-1 (the JAX CLI's mesh, inference.py:46-71). Reports the average
+per-track wall-clock, as the reference does (README.md:154-160).
 
     python -m xumx_slicq_torch.inference --input-dir wavs --output-dir out --model-path model
 """
@@ -13,6 +14,8 @@ import time
 from pathlib import Path
 
 import numpy as np
+
+import torch
 
 from . import audio as audio_io
 from .separator import Separator
@@ -40,6 +43,9 @@ def inference_main(argv=None):
     parser.add_argument("--warmup-iters", type=int, default=0)
     parser.add_argument("--model-path", type=str, default=None)
     parser.add_argument("--chunk-size", type=int, default=2621440)
+    parser.add_argument("--n-devices", type=int, default=0,
+                        help="fan each track's chunks over this many devices: cuda:0..N-1, or N copies on "
+                             "the CPU with --device cpu (0 or 1 = one device)")
     parser.add_argument("--grouped-wiener", action="store_true", default=False,
                         help="accepted for the JAX CLI's flag surface; no effect: K2 always runs every "
                              "bucket in one grouped call")
@@ -48,9 +54,15 @@ def inference_main(argv=None):
                              "stages in float32 (K1)")
     args = parser.parse_args(argv)
 
+    devices = None
+    if args.n_devices > 1:
+        if args.device == "cuda" and args.n_devices > torch.cuda.device_count():
+            raise ValueError(f"--n-devices {args.n_devices}: only {torch.cuda.device_count()} card(s) here")
+        devices = [args.device if args.device == "cpu" else f"cuda:{i}" for i in range(args.n_devices)]
     separator = Separator.load(
         chunk_size=args.chunk_size,
-        device=args.device,
+        device=None if devices else args.device,
+        devices=devices,
         realtime=args.realtime,
         warmup=args.warmup_iters,
         model_path=args.model_path,

@@ -72,23 +72,26 @@ class RecurrenceLayout:
     """Where each bucket's xp, h and W_hh^T lie in their packed buffers.
 
     hidden, frames: one H and one sequence length per bucket; batch: the
-    sequence batch B (the chunk batch); dirs: 2 offline, 1 realtime.
-    Layouts of the same sizes are equal."""
+    sequence batch B (the chunk batch); dirs: 2 offline, 1 realtime;
+    targets: the stacked targets, 4 but on a target-parallel rank
+    (parallel/mesh.py), which holds fewer. Layouts of the same sizes are
+    equal."""
 
-    def __init__(self, hidden: Sequence[int], frames: Sequence[int], batch: int, dirs: int):
+    def __init__(self, hidden: Sequence[int], frames: Sequence[int], batch: int, dirs: int,
+                 targets: int = NB_TARGETS):
         self.hidden = tuple(int(h) for h in hidden)
         self.frames = tuple(int(f) for f in frames)
         if len(self.hidden) != len(self.frames):
             raise ValueError("RecurrenceLayout: one hidden size and one length per bucket")
-        self.batch, self.dirs = int(batch), int(dirs)
-        n = NB_TARGETS
+        self.batch, self.dirs, self.targets = int(batch), int(dirs), int(targets)
+        n = self.targets
         self.xp_sizes = tuple(n * dirs * f * batch * 4 * h for h, f in zip(self.hidden, self.frames))
         self.h_sizes = tuple(n * f * batch * dirs * h for h, f in zip(self.hidden, self.frames))
         self.w_sizes = tuple(n * dirs * h * 4 * h for h in self.hidden)
         self.xp_offsets, self.xp_size = _offsets(self.xp_sizes)
         self.h_offsets, self.h_size = _offsets(self.h_sizes)
         self.w_offsets, self.w_size = _offsets(self.w_sizes)
-        self._key = (self.hidden, self.frames, self.batch, self.dirs)
+        self._key = (self.hidden, self.frames, self.batch, self.dirs, self.targets)
 
     def __eq__(self, other) -> bool:
         return isinstance(other, RecurrenceLayout) and self._key == other._key
@@ -97,18 +100,18 @@ class RecurrenceLayout:
         return hash(self._key)
 
     def xp_blocks(self, xp: torch.Tensor) -> List[torch.Tensor]:
-        """(4, dirs, frames, B, 4H) views of a packed xp buffer."""
-        return [xp[o: o + z].view(NB_TARGETS, self.dirs, f, self.batch, 4 * h)
+        """(targets, dirs, frames, B, 4H) views of a packed xp buffer."""
+        return [xp[o: o + z].view(self.targets, self.dirs, f, self.batch, 4 * h)
                 for h, f, o, z in zip(self.hidden, self.frames, self.xp_offsets, self.xp_sizes)]
 
     def h_blocks(self, out: torch.Tensor) -> List[torch.Tensor]:
-        """(4, frames, B, dirs * H) views of a packed h buffer."""
-        return [out[o: o + z].view(NB_TARGETS, f, self.batch, self.dirs * h)
+        """(targets, frames, B, dirs * H) views of a packed h buffer."""
+        return [out[o: o + z].view(self.targets, f, self.batch, self.dirs * h)
                 for h, f, o, z in zip(self.hidden, self.frames, self.h_offsets, self.h_sizes)]
 
     def w_blocks(self, w: torch.Tensor) -> List[torch.Tensor]:
-        """(4, dirs, H, 4H) views (W_hh^T) of packed recurrent weights."""
-        return [w[o: o + z].view(NB_TARGETS, self.dirs, h, 4 * h)
+        """(targets, dirs, H, 4H) views (W_hh^T) of packed recurrent weights."""
+        return [w[o: o + z].view(self.targets, self.dirs, h, 4 * h)
                 for h, o, z in zip(self.hidden, self.w_offsets, self.w_sizes)]
 
 
@@ -240,7 +243,7 @@ def lstm_recurrence_grouped_plain(xp: torch.Tensor, w: torch.Tensor, layout: Rec
         res = _walk(walk, torch.cat([ws[k].transpose(-1, -2) for k in ks]), cell)
         h, c = res if cell else (res, None)
         for i, k in enumerate(ks):
-            part = slice(NB_TARGETS * i, NB_TARGETS * (i + 1))
+            part = slice(layout.targets * i, layout.targets * (i + 1))
             hs[k] = _positions(h[part], layout.frames[k]).reshape(-1)
             if cell:
                 cs[k] = _positions(c[part], layout.frames[k]).reshape(-1)
@@ -281,7 +284,7 @@ def lstm_recurrence_backward_grouped_plain(xp: torch.Tensor, w: torch.Tensor, h:
         dwalk, dW = _walk_backward(walk, torch.cat([ws[k].transpose(-1, -2) for k in ks]),
                                    walked(hs), walked(cs), walked(dhs))
         for i, k in enumerate(ks):
-            part = slice(NB_TARGETS * i, NB_TARGETS * (i + 1))
+            part = slice(layout.targets * i, layout.targets * (i + 1))
             dxs[k].copy_(_walk_order(dwalk[part, :, :layout.frames[k]]))
             dws[k].copy_(dW[part].transpose(-1, -2))
     return dxp, dw
@@ -312,7 +315,7 @@ def work_items(layout: RecurrenceLayout, backward: bool = False, smem_limit: int
     rows = []
     for k, (H, frames) in enumerate(zip(layout.hidden, layout.frames)):
         base = [H, frames, layout.batch, layout.dirs, layout.xp_offsets[k], layout.h_offsets[k], layout.w_offsets[k]]
-        nseq = NB_TARGETS * layout.dirs * layout.batch
+        nseq = layout.targets * layout.dirs * layout.batch
         lanes = _lanes(H)
         if lanes > 0 and frames * layout.batch * 4 * H >= 2 ** 31:
             raise ValueError(f"lstm_recurrence: a sequence batch of {frames} steps at B = {layout.batch}, H = {H} "
@@ -365,8 +368,8 @@ def _check(xp: torch.Tensor, w: torch.Tensor, layout: RecurrenceLayout):
 
 
 def layout_args(layout: RecurrenceLayout) -> tuple:
-    """A layout as the ints the registered ops take: (hidden, frames, batch, dirs)."""
-    return list(layout.hidden), list(layout.frames), layout.batch, layout.dirs
+    """A layout as the ints the registered ops take: (hidden, frames, batch, dirs, targets)."""
+    return list(layout.hidden), list(layout.frames), layout.batch, layout.dirs, layout.targets
 
 
 def _forward(xp: torch.Tensor, w: torch.Tensor, layout: RecurrenceLayout, cell: bool = False):

@@ -94,44 +94,45 @@ def _(x, v, buckets, items1, items2, shapes):
 # -- K5 --------------------------------------------------------------------------
 
 
-def _h_size(hidden: List[int], frames: List[int], batch: int, dirs: int) -> int:
-    return sum(_k5.NB_TARGETS * f * batch * dirs * h for h, f in zip(hidden, frames))
+def _h_size(hidden: List[int], frames: List[int], batch: int, dirs: int, targets: int) -> int:
+    return sum(targets * f * batch * dirs * h for h, f in zip(hidden, frames))
 
 
-def _k5_plain(xp, w, hidden, frames, batch, dirs, cell):
-    return _k5.lstm_recurrence_grouped_plain(xp, w, _k5.RecurrenceLayout(hidden, frames, batch, dirs), cell)
+def _k5_plain(xp, w, hidden, frames, batch, dirs, targets, cell):
+    return _k5.lstm_recurrence_grouped_plain(xp, w, _k5.RecurrenceLayout(hidden, frames, batch, dirs, targets),
+                                             cell)
 
 
 @torch.library.custom_op(f"{NAMESPACE}::lstm_recurrence", mutates_args=(), device_types="cpu")
 def lstm_recurrence(xp: Tensor, w: Tensor, items: Tensor, smem: int, hidden: List[int], frames: List[int],
-                    batch: int, dirs: int) -> Tensor:
-    return _k5_plain(xp, w, hidden, frames, batch, dirs, cell=False)
+                    batch: int, dirs: int, targets: int) -> Tensor:
+    return _k5_plain(xp, w, hidden, frames, batch, dirs, targets, cell=False)
 
 
 @lstm_recurrence.register_kernel("cuda")
-def _(xp, w, items, smem, hidden, frames, batch, dirs):
-    return _k5.launch(xp, w, items, smem, _h_size(hidden, frames, batch, dirs), cell=False)[0]
+def _(xp, w, items, smem, hidden, frames, batch, dirs, targets):
+    return _k5.launch(xp, w, items, smem, _h_size(hidden, frames, batch, dirs, targets), cell=False)[0]
 
 
 @lstm_recurrence.register_fake
-def _(xp, w, items, smem, hidden, frames, batch, dirs):
-    return xp.new_empty((_h_size(hidden, frames, batch, dirs),))
+def _(xp, w, items, smem, hidden, frames, batch, dirs, targets):
+    return xp.new_empty((_h_size(hidden, frames, batch, dirs, targets),))
 
 
 @torch.library.custom_op(f"{NAMESPACE}::lstm_recurrence_cell", mutates_args=(), device_types="cpu")
 def lstm_recurrence_cell(xp: Tensor, w: Tensor, items: Tensor, smem: int, hidden: List[int], frames: List[int],
-                         batch: int, dirs: int) -> Tuple[Tensor, Tensor]:
-    return _k5_plain(xp, w, hidden, frames, batch, dirs, cell=True)
+                         batch: int, dirs: int, targets: int) -> Tuple[Tensor, Tensor]:
+    return _k5_plain(xp, w, hidden, frames, batch, dirs, targets, cell=True)
 
 
 @lstm_recurrence_cell.register_kernel("cuda")
-def _(xp, w, items, smem, hidden, frames, batch, dirs):
-    return _k5.launch(xp, w, items, smem, _h_size(hidden, frames, batch, dirs), cell=True)
+def _(xp, w, items, smem, hidden, frames, batch, dirs, targets):
+    return _k5.launch(xp, w, items, smem, _h_size(hidden, frames, batch, dirs, targets), cell=True)
 
 
 @lstm_recurrence_cell.register_fake
-def _(xp, w, items, smem, hidden, frames, batch, dirs):
-    n = _h_size(hidden, frames, batch, dirs)
+def _(xp, w, items, smem, hidden, frames, batch, dirs, targets):
+    n = _h_size(hidden, frames, batch, dirs, targets)
     return xp.new_empty((n,)), xp.new_empty((n,))
 
 

@@ -14,6 +14,10 @@ frame 2s+1 straddles slices s and s+1, and every output sample receives one
 even-frame and one odd-frame contribution. The realtime variant left-pads
 the time axis by T-1 (causal enc1, cdae.py:218-221) and keeps the first
 S*T outputs of dec2.
+
+`targets` < 4 builds the module of a target-parallel rank
+(parallel/mesh.py): the same layers for its targets only, the groups=4
+convs becoming groups=targets.
 """
 
 from typing import Dict, Optional
@@ -41,7 +45,7 @@ class SlicedCDAE(nn.Module):
 
     def __init__(self, nb_channels: int, nb_f_bins: int, nb_t_bins: int,
                  hidden_size_1: int = 50, hidden_size_2: int = 51, time_filter_2: int = 4,
-                 realtime: bool = False, amp: bool = False):
+                 realtime: bool = False, amp: bool = False, targets: int = NB_TARGETS):
         super().__init__()
         C, T = nb_channels, nb_t_bins
         h1, h2, tf2 = hidden_size_1, hidden_size_2, time_filter_2
@@ -51,7 +55,7 @@ class SlicedCDAE(nn.Module):
         self.fphi = fphi
         self.realtime = realtime
         self.amp = amp                 # bf16 conv operands (mixed-precision training)
-        n = NB_TARGETS
+        self.targets = n = targets
         self.enc1_w = nn.Parameter(torch.empty(n * h1, C, fphi, T))      # conv OIHW
         self.enc2_w = nn.Parameter(torch.empty(n * h2, h1, fphi, tf2))   # grouped conv
         self.dec1_w = nn.Parameter(torch.empty(n * h2, h1, fphi, tf2))   # grouped conv_transpose IOHW
@@ -93,7 +97,7 @@ class SlicedCDAE(nn.Module):
         a1, b1 = affine(self.bn1)
         a2, b2 = affine(self.bn2)
         a3, b3 = affine(self.bn3)
-        n, h1, h2 = NB_TARGETS, self.hidden_size_1, self.hidden_size_2
+        n, h1, h2 = self.targets, self.hidden_size_1, self.hidden_size_2
         dec1 = self.dec1_w.reshape(n, h2, h1, *self.dec1_w.shape[2:]) * a3.reshape(n, 1, h1, 1, 1)
         return {
             "enc1_w": self.enc1_w * a1[:, None, None, None], "enc1_b": b1,
@@ -103,13 +107,15 @@ class SlicedCDAE(nn.Module):
             "input_mean": self.input_mean, "input_scale": self.input_scale,
         }
 
-    def forward(self, x_mag: torch.Tensor, folded: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
-        """x_mag: (B, C, F, S, T) mixture magnitude -> masks (4, B, C, F, S, T).
+    def forward(self, x_mag: torch.Tensor, folded: Optional[Dict[str, torch.Tensor]] = None,
+                mesh=None) -> torch.Tensor:
+        """x_mag: (B, C, F, S, T) mixture magnitude -> masks (targets, B, C, F, S, T).
 
         folded=None runs BatchNorm as the module's mode says: in train mode
         on the batch statistics, updating the running buffers; in eval mode
         from the running statistics. A dict from fold_batchnorm runs the
-        folded fast path, which is eval-only (cdae.py:253-255)."""
+        folded fast path, which is eval-only (cdae.py:253-255). mesh: in
+        train mode, the statistics are the dp group's (nn.batch_norm)."""
         if folded is not None and self.training:
             raise ValueError("BN-folded weights cannot train (fold_batchnorm is eval-only)")
         B, C, F, S, T = x_mag.shape
@@ -124,7 +130,7 @@ class SlicedCDAE(nn.Module):
             if folded is not None:
                 return h
             return batch_norm(h, bn.weight, bn.bias, bn.running_mean, bn.running_var, bn.eps,
-                              train=self.training)
+                              train=self.training, mesh=mesh)
 
         def conv(fn, h, w, b, **kw):
             if not self.amp:
@@ -138,10 +144,11 @@ class SlicedCDAE(nn.Module):
             x = Fn.pad(x, (T - 1, 0))
         h = conv(Fn.conv2d, x, p["enc1_w"], p.get("enc1_b"), stride=(1, hop))
         h = torch.relu(norm(h, self.bn1))
-        h = conv(Fn.conv2d, h, p["enc2_w"], p.get("enc2_b"), groups=NB_TARGETS)
+        n = self.targets
+        h = conv(Fn.conv2d, h, p["enc2_w"], p.get("enc2_b"), groups=n)
         h = torch.relu(norm(h, self.bn2))
-        h = conv(Fn.conv_transpose2d, h, p["dec1_w"], p.get("dec1_b"), groups=NB_TARGETS)
+        h = conv(Fn.conv_transpose2d, h, p["dec1_w"], p.get("dec1_b"), groups=n)
         h = torch.relu(norm(h, self.bn3))
-        y = conv(Fn.conv_transpose2d, h, p["dec2_w"], p["dec2_b"], stride=(1, hop), groups=NB_TARGETS)
+        y = conv(Fn.conv_transpose2d, h, p["dec2_w"], p["dec2_b"], stride=(1, hop), groups=n)
         mask = torch.sigmoid(y[..., : S * T])
-        return mask.reshape(B, NB_TARGETS, C, F, S, T).transpose(0, 1)
+        return mask.reshape(B, n, C, F, S, T).transpose(0, 1)

@@ -17,14 +17,20 @@ leading each LSTM weight) uses the reference's `sliced_umx.{i}.layer1s.{t}`
 (Linear 0 + BatchNorm1d 1, present only where F > 10), `lstms.{t}.
 {weight,bias}_{ih,hh}_l{l}[_reverse]`, `layer2s.{t}` (Linear 0 +
 BatchNorm1d 1) and `layer3s.{t}.0` names (torch_import.py:73-129).
+
+The JAX package's own file, `params.msgpack` (flax's `to_bytes` of its
+pytrees), is read and written by `load_params_msgpack` and
+`params_msgpack_bytes`, through `flax_msgpack` (plain Python) and the
+tree maps here.
 """
 
 import re
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
 
+from . import flax_msgpack
 from .cdae import NB_TARGETS
 from .lstm import NB_LAYERS
 
@@ -234,3 +240,77 @@ def to_reference_state_dict(model) -> Dict[str, torch.Tensor]:
         out[ref + "input_mean"] = blk.input_mean.detach().cpu().clone()
         out[ref + "input_scale"] = blk.input_scale.detach().cpu().clone()
     return out
+
+
+# -- the JAX package's own weights: params.msgpack ---------------------------------
+
+PARAMS_FILE = "params.msgpack"
+
+
+def _split_targets(t: torch.Tensor) -> np.ndarray:
+    """(4*d0, ...) target-major tensor -> (4, d0, ...) float32 array."""
+    a = t.detach().to("cpu", torch.float32).numpy()
+    return np.ascontiguousarray(a.reshape(NB_TARGETS, a.shape[0] // NB_TARGETS, *a.shape[1:]))
+
+
+def _arr(t: torch.Tensor) -> np.ndarray:
+    return np.ascontiguousarray(t.detach().to("cpu", torch.float32).numpy())
+
+
+def jax_trees(model):
+    """The inverse of params_from_jax / lstm_params_from_jax: a 4-target
+    Unmix's weights as the JAX package's (params, batch_stats) pytrees of
+    NumPy arrays ({"blocks": [...]}, the trees `Unmix.init` returns)."""
+    blocks, stats = [], []
+    for blk in model.blocks:
+        if getattr(blk, "targets", NB_TARGETS) != NB_TARGETS:
+            raise ValueError("jax_trees needs the 4-target model (gather a target-parallel run's state first)")
+        p, s = {}, {}
+        bns = _BNS if not model.lstm else (["bn1"] if blk.downsample else []) + ["bn2"]
+        if model.lstm:
+            sfxs = ["", "_reverse"][: blk.dirs]
+            if blk.downsample:
+                p["fc1_w"] = _arr(blk.fc1_w)
+            p["lstm"] = [{name + sfx: _arr(getattr(blk, f"{name}_l{layer}")[:, d])
+                          for name in _LSTM_NAMES for d, sfx in enumerate(sfxs)} for layer in range(NB_LAYERS)]
+            for name in ("fc2_w", "fc3_w", "fc3_b"):
+                p[name] = _arr(getattr(blk, name))
+        else:
+            for name in list(_CONVS) + ["dec2_b"]:
+                p[name] = _split_targets(getattr(blk, name))
+        p["input_mean"], p["input_scale"] = _arr(blk.input_mean), _arr(blk.input_scale)
+        for bn in bns:
+            mod = getattr(blk, bn)
+            p[bn] = {"scale": _split_targets(mod.weight), "bias": _split_targets(mod.bias)}
+            s[bn] = {"mean": _split_targets(mod.running_mean), "var": _split_targets(mod.running_var)}
+        blocks.append(p)
+        stats.append(s)
+    return {"blocks": blocks}, {"blocks": stats}
+
+
+def params_msgpack_bytes(model) -> bytes:
+    """The bytes of the JAX package's `params.msgpack` for this model:
+    flax.serialization.to_bytes({"params", "batch_stats"})."""
+    params, batch_stats = jax_trees(model)
+    return flax_msgpack.to_bytes({"params": params, "batch_stats": batch_stats})
+
+
+def load_params_msgpack(path) -> Tuple[Dict[str, torch.Tensor], bool]:
+    """A `params.msgpack` (the JAX package's, or `params_msgpack_bytes`')
+    -> (the port's state_dict, whether it holds the LSTM variant). An LSTM
+    bucket has the down-projection where its tree has `fc1_w`, which the
+    JAX package's init writes for F > 10."""
+    with open(path, "rb") as f:
+        blob = flax_msgpack.restore(f.read())
+
+    def tree(node):
+        if isinstance(node, dict) and node and all(isinstance(k, str) and k.isdigit() for k in node):
+            return [tree(v) for v in flax_msgpack.as_list(node)]
+        if isinstance(node, dict):
+            return {k: tree(v) for k, v in node.items()}
+        return node
+
+    params, batch_stats = tree(blob["params"]), tree(blob["batch_stats"])
+    lstm = "lstm" in params["blocks"][0]
+    convert = lstm_params_from_jax if lstm else params_from_jax
+    return convert(params, batch_stats), lstm

@@ -11,6 +11,12 @@ gradients flow through K2's backward kernel to the masks. The LSTM
 model's buckets' recurrences run together, one K5 launch per layer, and
 in training one K5b launch per layer backward (models/lstm.py); its
 inter-layer dropout draws from the generator given to `forward`.
+
+Built with a `mesh` (parallel/mesh.py), the model is one rank's: it holds
+the weights and BatchNorm of the rank's targets only (the 4-target model
+drawn from `seed`, cut to them), its train-mode BatchNorm runs on the dp
+group's global batch, and the masks of all 4 targets are gathered over the
+tp group before the Wiener-EM, which couples the targets.
 """
 
 from typing import List, Optional, Sequence, Tuple
@@ -21,6 +27,7 @@ from torch import nn
 from ..device import resolve_device
 from ..ops import wiener as wiener_ops
 from ..ops.packed import PackedBlocks, layout_of
+from ..parallel.mesh import NB_TARGETS, take_targets
 from .cdae import SlicedCDAE
 from .lstm import SlicedLSTM, lstm_masks, recurrent_weights
 
@@ -45,24 +52,30 @@ class Unmix(nn.Module):
         amp: bool = False,
         seed: int = 0,
         device="cuda",
+        mesh=None,
     ):
         """amp: bf16 operands with float32 results (`nn.amp_op`), the JAX
         package's mixed-precision training (unmix.py:44-48): the CDAE's
         convs, or the LSTM's projections and Linear layers.
         lstm: SlicedLSTM blocks (unmix.py:65-78); the hidden sizes and time
-        filter are the CDAE's and do not apply."""
+        filter are the CDAE's and do not apply.
+        mesh: this rank's `parallel.mesh.Mesh` in a run across ranks."""
         super().__init__()
         dev = resolve_device(device)
         self.realtime = realtime
         self.lstm = lstm
         self.amp = amp
         self.wiener_iterations = wiener_iterations
-        if lstm:
-            blocks = [SlicedLSTM(C, F, T, realtime=realtime, amp=amp) for (_, C, F, _, T) in block_shapes]
-        else:
-            blocks = [SlicedCDAE(C, F, T, hidden_size_1, hidden_size_2, time_filter_2, realtime=realtime, amp=amp)
-                      for (_, C, F, _, T) in block_shapes]
-        self.blocks = nn.ModuleList(blocks)
+        self.mesh = mesh
+
+        def make_blocks(targets):
+            if lstm:
+                return nn.ModuleList([SlicedLSTM(C, F, T, realtime=realtime, amp=amp, targets=targets)
+                                      for (_, C, F, _, T) in block_shapes])
+            return nn.ModuleList([SlicedCDAE(C, F, T, hidden_size_1, hidden_size_2, time_filter_2, realtime=realtime,
+                                             amp=amp, targets=targets) for (_, C, F, _, T) in block_shapes])
+
+        self.blocks = make_blocks(NB_TARGETS)
         gen = torch.Generator().manual_seed(seed)
         for i, blk in enumerate(self.blocks):
             blk.reset_parameters(gen)
@@ -71,6 +84,10 @@ class Unmix(nn.Module):
                     blk.input_mean.copy_(-torch.as_tensor(input_means[i], dtype=torch.float32))
                 if input_scales is not None:
                     blk.input_scale.copy_(1.0 / torch.as_tensor(input_scales[i], dtype=torch.float32))
+        if mesh is not None and mesh.tp > 1:
+            full = self.blocks.state_dict()
+            self.blocks = make_blocks(len(mesh.targets))
+            self.blocks.load_state_dict(take_targets(full, mesh.targets))
         self.to(dev)
         self.eval()
 
@@ -101,11 +118,14 @@ class Unmix(nn.Module):
         Xcomplex when that is packed; Ymasks a list of per-bucket masks."""
         layout = layout_of(Xcomplex)
         Xmags = [torch.abs(x) for x in Xcomplex]
+        mesh = self.mesh if self.training else None       # eval BatchNorm reads the running statistics
         if self.lstm:
-            Ymasks = lstm_masks(self.blocks, Xmags, prepared, generator)
+            Ymasks = lstm_masks(self.blocks, Xmags, prepared, generator, mesh)
         else:
-            Ymasks = [blk(xm, None if prepared is None else prepared[i])
+            Ymasks = [blk(xm, None if prepared is None else prepared[i], mesh)
                       for i, (blk, xm) in enumerate(zip(self.blocks, Xmags))]
+        if self.mesh is not None and self.mesh.tp > 1:
+            Ymasks = self._gather_targets(Ymasks)
         if torch.is_grad_enabled() and any(m.requires_grad for m in Ymasks):
             # out= writes do not support autograd: concatenate instead
             packed = torch.cat([(m * xm[None]).reshape(-1) for m, xm in zip(Ymasks, Xmags)])
@@ -114,6 +134,17 @@ class Unmix(nn.Module):
         for m, xm, dst in zip(Ymasks, Xmags, Ymags):
             torch.mul(m, xm[None], out=dst)           # multiplicative skip connection
         return Ymags, Ymasks
+
+    def _gather_targets(self, masks: List[torch.Tensor]) -> List[torch.Tensor]:
+        """Every bucket's masks of this rank's targets -> of all 4, in one
+        differentiable gather over the tp group (ranks hold contiguous
+        target ranges in tp order)."""
+        g = self.mesh.gather_targets(torch.cat([m.reshape(-1) for m in masks]))     # (tp, total)
+        out, off = [], 0
+        for m in masks:
+            out.append(g[:, off: off + m.numel()].reshape(NB_TARGETS, *m.shape[1:]))
+            off += m.numel()
+        return out
 
     def forward(self, Xcomplex: Sequence[torch.Tensor], prepared: Optional[list] = None,
                 generator: Optional[torch.Generator] = None):

@@ -14,26 +14,35 @@ LSTM it is not: its literal reshapes (models/lstm.py) mix the chunks of a
 chunk batch, zero chunks included, into each sequence, so its stems depend
 on this batching, and the port keeps it exactly as the JAX package does.
 
+Several devices (`devices=[...]`, the counterpart of the JAX package's
+`mesh=`): a replica of the model on each, and a track's chunks go out in
+waves of at most 8 x n_dev chunks, each device taking an equal chunk batch
+from the buckets 1, 2, 4, 8 (JAX separator.py:164-232). A device may be
+listed twice. For the CDAE the stems equal the single-device Separator's;
+the LSTM's depend on the chunk batching (above), here each device's own.
+
 Model directories hold a JSON manifest (`xumx_slicq_tpu.json` or the
-reference's `xumx_slicq_v2.json`) and weights as a reference-named torch
-state dict (`xumx_slicq_tpu.pth` or `xumx_slicq_v2.pth`). The JAX package's
-native `params.msgpack` needs flax to read and is not supported here.
+reference's `xumx_slicq_v2.json`) and weights: the JAX package's native
+`params.msgpack` (read and written in plain Python, models/flax_msgpack.py),
+else a reference-named torch state dict (`xumx_slicq_tpu.pth` or
+`xumx_slicq_v2.pth`), in the JAX package's order (separator.py:405-423).
 """
 
+import contextlib
 import copy
 import json
 import sys
 import time
 from pathlib import Path
-from typing import Optional
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 from torch.profiler import record_function
 
-from .device import resolve_device
+from .device import resolve_device, same_device
 from .models import Unmix
-from .models.convert import load_reference_state_dict
+from .models.convert import PARAMS_FILE, load_params_msgpack, load_reference_state_dict, params_msgpack_bytes
 from .ops.slicqt import SliCQT
 
 MANIFEST_NAMES = ("xumx_slicq_tpu.json", "xumx_slicq_v2.json")
@@ -62,11 +71,19 @@ class Separator:
         model: Unmix,
         sample_rate: float = 44100.0,
         chunk_size: Optional[int] = 2621440,
-        device="cuda",
+        device=None,
         quiet: bool = True,
+        devices: Optional[Sequence] = None,
     ):
-        self.device = resolve_device(device)
-        if slicqt.device != self.device:
+        """device: the card ("cuda" when neither it nor `devices` is given)
+        or "cpu". devices: several devices (exclusive with `device`); the
+        slicqt and model are the first's and copied to the others."""
+        if devices is not None and device is not None:
+            raise ValueError("pass either device or devices, not both")
+        if devices is not None and len(devices) == 0:
+            raise ValueError("devices is empty")
+        self.device = resolve_device(devices[0] if devices is not None else device or "cuda")
+        if not same_device(slicqt.device, self.device):
             raise ValueError(f"SliCQT lives on {slicqt.device}, Separator on {self.device}")
         self.slicqt = slicqt
         self.model = model.to(self.device).eval()
@@ -77,6 +94,8 @@ class Separator:
         # weights (cdae.fold_cdae_batchnorm), the LSTM's recurrent weights are
         # packed for K5, once here and not on every chunk
         self._prepared = model.inference_weights()
+        # one Separator a device; this one is the first
+        self.replicas: List["Separator"] = [self] + [self.clone(d) for d in (devices or [])[1:]]
 
     # -- chunk pipeline ------------------------------------------------------
 
@@ -107,6 +126,10 @@ class Separator:
         chunk = min(self.chunk_size, max(N, self.slicqt.sllen // 2 + 1))
         nchunks = -(-N // chunk)
 
+        if len(self.replicas) > 1:
+            # each item over the devices in turn (JAX separator.py:205-230)
+            return np.concatenate([self._forward_waves(audio_big[b: b + 1], chunk, nchunks) for b in range(B)], axis=1)
+
         if B == 1 and 1 < nchunks <= self._CHUNK_BATCH_BUCKETS[-1]:
             # one track: all chunks in one call, batch padded to a bucket
             nb = next(b for b in self._CHUNK_BATCH_BUCKETS if b >= nchunks)
@@ -130,6 +153,49 @@ class Separator:
             pend.append(self._chunk_fn(a.to(self.device, non_blocking=True))[..., : hi - lo])
         return self._to_host(torch.cat(pend, dim=-1))
 
+    def _waves(self, chunk: int, nchunks: int, stage) -> torch.Tensor:
+        """A track's chunks over the devices in full waves (JAX
+        separator.py:164-185): at most 8 x n_dev chunks a wave, each device
+        taking a chunk batch b from the buckets, the smallest with
+        b n_dev >= the wave's chunks, zero chunks padding the last.
+        stage(ci, nb, device) gives the (nb, C, chunk) block of chunks
+        ci.. on `device`. Every launch is queued before any result is
+        gathered. Returns the (4, nchunks, C, chunk) estimates on the
+        first device."""
+        n_dev = len(self.replicas)
+        cap = self._CHUNK_BATCH_BUCKETS[-1] * n_dev
+        parts = []
+        ci = 0
+        while ci < nchunks:
+            take = min(nchunks - ci, cap)
+            nb = next(b for b in self._CHUNK_BATCH_BUCKETS if b * n_dev >= take)
+            for d, replica in enumerate(self.replicas):
+                lo = ci + d * nb
+                if lo >= ci + take:
+                    break
+                # the replica's card current while it launches: the hand-written kernels launch on the current one
+                card = torch.cuda.device(replica.device) if replica.device.type == "cuda" else contextlib.nullcontext()
+                with card, torch.inference_mode():
+                    parts.append((min(nb, ci + take - lo), replica._chunk_fn(stage(lo, nb, replica.device))))
+            ci += take
+        return torch.cat([est[:, :n].to(self.device) for n, est in parts], dim=1)
+
+    def _forward_waves(self, audio: np.ndarray, chunk: int, nchunks: int) -> np.ndarray:
+        """One track (1, C, N) over the devices -> (4, 1, C, N) on the host."""
+        _, C, N = audio.shape
+
+        def stage(lo, nb, device):
+            flat = self._host_buffer((nb, C, chunk), zero=True)
+            for k in range(nb):
+                a, b = (lo + k) * chunk, min((lo + k + 1) * chunk, N)
+                if a < N:
+                    flat.numpy()[k, :, : b - a] = audio[0, :, a:b]
+            return flat.to(device, non_blocking=True)
+
+        # reassembled on the first device, as the single-device path does, then one copy back
+        est = self._waves(chunk, nchunks, stage)
+        return self._to_host(est.transpose(1, 2).reshape(4, 1, C, nchunks * chunk)[..., :N])
+
     @torch.inference_mode()
     def forward_device(self, audio: torch.Tensor) -> torch.Tensor:
         """Single-track forward on the device (xumx_slicq_tpu/separator.py:
@@ -146,7 +212,13 @@ class Separator:
         nchunks = -(-N // chunk)
         flat = torch.nn.functional.pad(audio[0].to(torch.float32), (0, nchunks * chunk - N))
         flat = flat.reshape(C, nchunks, chunk).transpose(0, 1)             # (nchunks, C, chunk)
-        if 1 < nchunks <= self._CHUNK_BATCH_BUCKETS[-1]:
+        if len(self.replicas) > 1:
+            def stage(lo, nb, device):
+                blk = flat[lo: lo + nb]
+                return torch.nn.functional.pad(blk, (0, 0, 0, 0, 0, nb - len(blk))).to(device)
+
+            est = self._waves(chunk, nchunks, stage)
+        elif 1 < nchunks <= self._CHUNK_BATCH_BUCKETS[-1]:
             nb = next(b for b in self._CHUNK_BATCH_BUCKETS if b >= nchunks)
             est = self._chunk_fn(torch.nn.functional.pad(flat, (0, 0, 0, 0, 0, nb - nchunks)))
             est = est[:, :nchunks]                                         # (4, nchunks, C, chunk)
@@ -158,7 +230,7 @@ class Separator:
     def clone(self, device) -> "Separator":
         """A Separator on another device with the same transform geometry
         and a copy of the weights (one per card for the evaluator's
-        `--devices`)."""
+        `--devices`, one per device of `devices=`)."""
         dev = resolve_device(device)
         t = self.slicqt
         slicqt = SliCQT(scale=t.scale_name, fbins=t.fbins, fmin=t.fmin, fmax=t.fmax, fgamma=t.fgamma,
@@ -209,13 +281,17 @@ class Separator:
         cls,
         chunk_size: Optional[int] = 2621440,
         model_path: Optional[str] = None,
-        device="cuda",
+        device=None,
         warmup: int = 0,
         realtime: bool = False,
         quiet: bool = True,
+        devices: Optional[Sequence] = None,
     ) -> "Separator":
-        """Build a Separator from a model directory (manifest + .pth)."""
-        device = resolve_device(device)
+        """Build a Separator from a model directory (manifest + weights) on
+        `device` ("cuda" by default) or on several `devices` (exclusive)."""
+        if devices is not None and device is not None:
+            raise ValueError("pass either device or devices, not both")
+        device = resolve_device(devices[0] if devices else device or "cuda")
         if model_path is None:
             raise ValueError("model_path is required (no bundled pretrained weights in this build)")
         model_path = Path(model_path).expanduser()
@@ -241,23 +317,38 @@ class Separator:
             time_filter_2=args.get("time_filter_2", 4),
             device=device,
         )
-        model.load_state_dict(load_model_weights(model_path))
-        sep = cls(slicqt, model, sample_rate=args.get("sample_rate", 44100.0),
-                  chunk_size=chunk_size, device=device, quiet=quiet)
+        model.load_state_dict(load_model_weights(model_path, model))
+        sep = cls(slicqt, model, sample_rate=args.get("sample_rate", 44100.0), chunk_size=chunk_size,
+                  device=None if devices else device, quiet=quiet, devices=devices)
         if warmup > 0:
             sep.warmup(warmup)
         return sep
 
 
-def load_model_weights(model_path: Path) -> dict:
-    """The port's state_dict from a reference-named .pth in model_path."""
+def load_model_weights(model_path: Path, model: Optional[Unmix] = None) -> dict:
+    """The port's state_dict from model_path: the JAX package's
+    `params.msgpack` first, then a reference-named .pth, in the JAX
+    package's order (separator.py:405-423). `model`, when given, is checked
+    against the msgpack's variant (CDAE or LSTM)."""
+    native = Path(model_path) / PARAMS_FILE
+    if native.exists():
+        sd, lstm = load_params_msgpack(native)
+        if model is not None and lstm != model.lstm:
+            raise ValueError(f"{native} holds {'an LSTM' if lstm else 'a CDAE'} model, the manifest the other")
+        return sd
     for name in WEIGHT_NAMES:
         pth = Path(model_path) / name
         if pth.exists():
             return load_reference_state_dict(torch.load(pth, map_location="cpu", weights_only=True))
-    if (Path(model_path) / "params.msgpack").exists():
-        raise FileNotFoundError(
-            f"{model_path} holds only params.msgpack, which needs flax to read; "
-            f"save the weights as {WEIGHT_NAMES[0]} (models.convert.to_reference_state_dict)"
-        )
-    raise FileNotFoundError(f"no weights ({'/'.join(WEIGHT_NAMES)}) found in {model_path}")
+    raise FileNotFoundError(f"no weights ({PARAMS_FILE} or {'/'.join(WEIGHT_NAMES)}) "
+                            f"found in {model_path}")
+
+
+def save_model_weights(model_path: Path, model: Unmix) -> Path:
+    """Write the model's weights as the JAX package's `params.msgpack`
+    (xumx_slicq_tpu/separator.py:426-432): both packages load it."""
+    model_path = Path(model_path)
+    model_path.mkdir(parents=True, exist_ok=True)
+    out = model_path / PARAMS_FILE
+    out.write_bytes(params_msgpack_bytes(model))
+    return out

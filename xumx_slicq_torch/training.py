@@ -2,7 +2,7 @@
 with the plateau schedule, early stopping, whitening statistics,
 checkpoints and the JSON manifest.
 
-Port of xumx_slicq_tpu/training.py for one card. A step transforms the
+Port of xumx_slicq_tpu/training.py. A step transforms the
 mixture and the four targets, runs `Unmix` in train mode (BatchNorm on
 batch statistics), Wiener-EM through kernel K2, the 14-combination complex
 MSE plus the mask-sum prior and, with --sdr-mcoef > 0, SD-SDR on the
@@ -11,6 +11,17 @@ backward kernels, cuDNN) and one AdamW step. With --lstm the mask model
 is the LSTM variant: its recurrence runs through K5 and, backward, K5b,
 with inter-layer dropout drawn from a generator reseeded every step. The
 JAX package's ReduceLROnPlateau mirrors torch's, so the port uses torch's.
+
+--n-devices N --tp T (the JAX trainer's mesh, training.py:473-494) runs N
+ranks (parallel/mesh.py), rank r on cuda:r (or the CPU with --device cpu):
+N / T dp groups split each global batch by rows, with BatchNorm on the
+global batch; each of the T ranks of a tp group holds 4 / T targets'
+weights, BatchNorm and AdamW moments. Every rank loads the same batches
+from the same seed and keeps its rows. Gradients are reduced by hand after
+the backward; the validation batches are shared out over the dp groups;
+rank 0 prints and writes the files, with the target-split state gathered
+first, so they have exactly a one-process run's layout and a resume reads
+them into any layout.
 
 Outputs in --model-path, as the JAX trainer writes them: the manifest
 `xumx_slicq_tpu.json` (same schema), the best weights `xumx_slicq_tpu.pth`
@@ -36,6 +47,7 @@ from .device import resolve_device
 from .models import Unmix
 from .models.convert import to_reference_state_dict
 from .ops.slicqt import SliCQT
+from .parallel import mesh as meshlib
 
 MANIFEST = "xumx_slicq_tpu.json"
 WEIGHTS = "xumx_slicq_tpu.pth"
@@ -145,7 +157,7 @@ def get_statistics(slicqt: SliCQT, dataset, quiet: bool = True, max_tracks: Opti
 
 
 def make_train_step(slicqt: SliCQT, model: Unmix, optimizer, sdr_mcoef: float = -1.0,
-                    mask_sum_coef: float = 1.0, valid_metric: str = "loss"):
+                    mask_sum_coef: float = 1.0, valid_metric: str = "loss", mesh=None):
     """The train and valid steps (xumx_slicq_tpu/training.py:236-301).
 
     batch: (B, 5, C, L) float32 on the model's device, stacked (mix, bass,
@@ -155,7 +167,11 @@ def make_train_step(slicqt: SliCQT, model: Unmix, optimizer, sdr_mcoef: float = 
     (None: no dropout, as the JAX step's rng=None). valid_step(batch)
     scores in eval mode: the training
     criterion, or with valid_metric="sdr" the negative SD-SDR of the
-    inverse-transformed estimates."""
+    inverse-transformed estimates.
+
+    mesh: this rank's `parallel.mesh.Mesh` (the model's); batch is then the
+    rank's rows, the gradients are reduced over the ranks before the
+    optimizer step, and the returned loss is the global batch's."""
 
     def waves(Y_est, B, C, L):
         return slicqt.backward([y.reshape((-1,) + y.shape[2:]) for y in Y_est], L).reshape(4, B, C, L)
@@ -180,6 +196,9 @@ def make_train_step(slicqt: SliCQT, model: Unmix, optimizer, sdr_mcoef: float = 
         total = criterion(batch, generator)
         optimizer.zero_grad(set_to_none=True)
         total.backward()
+        if mesh is not None:
+            mesh.reduce_gradients(model.named_parameters())
+            total = mesh.mean_dp(total.detach())
         optimizer.step()
         return total.detach()
 
@@ -205,13 +224,50 @@ def dropout_seed(seed: int, epoch: int, batch_index: int) -> int:
     return int(state[0]) << 31 | int(state[1]) >> 1
 
 
-def save_checkpoint(path: Path, model: Unmix, optimizer, scheduler, is_best: bool):
+def _map_optimizer_state(sd: dict, model: Unmix, convert) -> dict:
+    """An optimizer state_dict with each parameter's moments passed through
+    convert({name: tensor}) -> {name: tensor}, by the parameter's name (the
+    tp rule reads names)."""
+    names = [n for n, _ in model.named_parameters()]
+    state = {}
+    for idx, st in sd["state"].items():
+        state[idx] = {k: (convert({names[idx]: v})[names[idx]] if isinstance(v, torch.Tensor) and v.ndim else v)
+                      for k, v in st.items()}
+    return {**sd, "state": state}
+
+
+def save_checkpoint(path: Path, model: Unmix, optimizer, scheduler, is_best: bool, full_model=None):
     """The full state every epoch; the weights under the reference's names
-    when the epoch is the best (reference training.py:563-568)."""
-    torch.save({"model": model.state_dict(), "optimizer": optimizer.state_dict(),
-                "scheduler": scheduler.state_dict()}, path / CHECKPOINT)
+    when the epoch is the best (reference training.py:563-568).
+
+    Across ranks (model.mesh) every rank calls it: the target-split state is
+    gathered into a one-process run's layout (`full_model`, a 4-target
+    Unmix on the CPU, takes the weights for the reference names when
+    tp > 1) and rank 0 writes."""
+    mesh = model.mesh
+    model_sd, opt_sd = model.state_dict(), optimizer.state_dict()
+    if mesh is not None:
+        model_sd = mesh.gather_state(model_sd)
+        opt_sd = _map_optimizer_state(opt_sd, model, mesh.gather_state)
+        if mesh.rank != 0:
+            return
+    torch.save({"model": model_sd, "optimizer": opt_sd, "scheduler": scheduler.state_dict()}, path / CHECKPOINT)
     if is_best:
+        if mesh is not None and mesh.tp > 1:
+            full_model.load_state_dict(model_sd)
+            model = full_model
         torch.save(to_reference_state_dict(model), path / WEIGHTS)
+
+
+def load_checkpoint(path: Path, model: Unmix, optimizer, scheduler) -> None:
+    """A checkpoint of any layout into this run's: on a tp rank the
+    target-stacked tensors are cut to the rank's targets."""
+    state = torch.load(path / CHECKPOINT, map_location=next(model.parameters()).device, weights_only=True)
+    targets = model.mesh.targets if model.mesh is not None else range(meshlib.NB_TARGETS)
+    model.load_state_dict(meshlib.take_targets(state["model"], targets))
+    optimizer.load_state_dict(_map_optimizer_state(state["optimizer"], model,
+                                                   lambda d: meshlib.take_targets(d, targets)))
+    scheduler.load_state_dict(state["scheduler"])
 
 
 def _scheduler_manifest(scheduler) -> dict:
@@ -263,9 +319,10 @@ def build_argparser():
                    help="loader threads per batch (deterministic: per-item seeds)")
     p.add_argument("--quiet", action="store_true", default=False)
     p.add_argument("--n-devices", type=int, default=-1,
-                   help="devices: one card; more is not ported yet (ROADMAP.md item 10)")
-    p.add_argument("--tp", type=int, default=1,
-                   help="target parallelism: not ported yet (ROADMAP.md item 10)")
+                   help="ranks, one a device (cuda:0..N-1, or the CPU with --device cpu); -1 = every card")
+    p.add_argument("--tp", type=int, default=1, choices=meshlib.TP_SIZES,
+                   help="target-parallel ranks: split the 4-target weight stack over this many ranks "
+                        "(hybrid dp x tp; must divide --n-devices)")
     p.add_argument("--valid-seq-dur", type=float, default=30.0,
                    help="validation window in seconds: tracks longer than it are scored in windows "
                         "of this size; <= 0 scores whole tracks padded to a slice count")
@@ -281,14 +338,54 @@ def build_argparser():
     return p
 
 
+def rank_devices(args) -> list:
+    """The device of each rank, the JAX trainer's mesh size rules
+    (training.py:473-491): --n-devices -1 takes every card (the CPU is one
+    device) and shrinks until --tp and the batch divide it; an explicit
+    count that the cards, --tp or the batch cannot hold raises."""
+    tp = args.tp
+    if args.n_devices < 0:
+        n = 1 if args.device == "cpu" else max(torch.cuda.device_count(), 1)
+        if n < tp:
+            raise ValueError(f"--tp {tp} exceeds the usable device count ({n} available)")
+        while n % tp or args.batch_size % (n // tp):
+            n -= 1
+    else:
+        n = args.n_devices
+        if args.device == "cuda" and n > torch.cuda.device_count():
+            raise ValueError(f"--n-devices {n}: only {torch.cuda.device_count()} card(s) here")
+    if n % tp:
+        raise ValueError(f"--n-devices {n} not divisible by --tp {tp}")
+    if args.batch_size % (n // tp):
+        raise ValueError(f"batch size {args.batch_size} not divisible by dp={n // tp} devices")
+    if n == 1:
+        return [args.device]
+    return ["cpu"] * n if args.device == "cpu" else [f"cuda:{r}" for r in range(n)]
+
+
 def training_main(argv=None, epoch_callback=None):
     """Train. epoch_callback(epoch, train_loss, valid_loss), if given, runs
     after each epoch's checkpoint; a truthy return stops training.
-    Returns the train and valid loss histories."""
+    Returns the train and valid loss histories (rank 0's across ranks,
+    which are every rank's)."""
     args = build_argparser().parse_args(argv)
-    if args.n_devices > 1 or args.tp > 1:
-        raise NotImplementedError("--n-devices/--tp > 1: multi-card training is ROADMAP.md item 10, not ported yet")
-    device = resolve_device(args.device)
+    devices = rank_devices(args)
+    if len(devices) == 1:
+        return _train(args, None, resolve_device(devices[0]), epoch_callback)
+    if epoch_callback is not None:
+        raise ValueError("epoch_callback runs in one process: it cannot follow a run across ranks")
+    return meshlib.spawn(_train_rank, devices, args=(args, devices))[0]
+
+
+def _train_rank(rank: int, args, devices: list):
+    mesh = meshlib.make_mesh(len(devices), args.tp, devices)
+    return _train(args, mesh, mesh.device)
+
+
+def _train(args, mesh, device, epoch_callback=None):
+    """One process's training: the whole run, or one rank's (mesh)."""
+    lead = mesh is None or mesh.rank == 0
+    quiet = args.quiet or not lead
     t0_all = time.time()
 
     if args.synthetic_dataset:
@@ -312,32 +409,44 @@ def training_main(argv=None, epoch_callback=None):
     if model_exists or args.debug:
         scaler_mean = scaler_std = None
     else:
-        if not args.quiet:
+        if not quiet:
             print("Computing dataset whitening statistics...")
-        scaler_mean, scaler_std = get_statistics(slicqt, train_dataset, quiet=args.quiet)
+        if lead:
+            scaler_mean, scaler_std = get_statistics(slicqt, train_dataset, quiet=quiet)
+        else:
+            scaler_mean = scaler_std = [np.zeros(shape[2], np.float32) for shape in shapes]
+        if mesh is not None:                                 # computed once, broadcast
+            n_b = len(shapes)
+            both = meshlib.replicate_arrays(list(scaler_mean) + list(scaler_std), mesh)
+            scaler_mean, scaler_std = both[:n_b], both[n_b:]
 
     model = Unmix(shapes, realtime=args.realtime, lstm=args.lstm, input_means=scaler_mean, input_scales=scaler_std,
                   hidden_size_1=args.hidden_size_1, hidden_size_2=args.hidden_size_2,
-                  time_filter_2=args.time_filter_2, amp=args.bf16, seed=args.seed, device=device)
-    if not args.quiet:
-        print(f"model parameters: {model.num_params():,} on {device}")
+                  time_filter_2=args.time_filter_2, amp=args.bf16, seed=args.seed, device=device, mesh=mesh)
+    # rank 0's 4-target copy on the CPU, for the reference-named weights of a target-split run
+    full_model = None
+    if lead and mesh is not None and mesh.tp > 1:
+        full_model = Unmix(shapes, realtime=args.realtime, lstm=args.lstm, hidden_size_1=args.hidden_size_1,
+                           hidden_size_2=args.hidden_size_2, time_filter_2=args.time_filter_2, device="cpu")
+    if not quiet:
+        where = device if mesh is None else f"{mesh.size} ranks, dp={mesh.dp} x tp={mesh.tp}, rank 0 on {device}"
+        print(f"model parameters: {model.num_params():,} on {where}")
     optimizer = torch.optim.AdamW(model.parameters(), lr=args.lr, weight_decay=args.weight_decay)
     scheduler = torch.optim.lr_scheduler.ReduceLROnPlateau(
         optimizer, factor=args.lr_decay_gamma, patience=args.lr_decay_patience, cooldown=10)
     train_step, valid_step = make_train_step(slicqt, model, optimizer, args.sdr_mcoef,
-                                             mask_sum_coef=args.mask_sum_coef, valid_metric=args.valid_metric)
+                                             mask_sum_coef=args.mask_sum_coef, valid_metric=args.valid_metric,
+                                             mesh=mesh)
 
     es = EarlyStopping(patience=args.patience)
     train_losses, valid_losses, train_times = [], [], []
     best_epoch, start_epoch = 0, 1
     if model_exists:
-        print("Model exists, resuming training...")
+        if lead:
+            print("Model exists, resuming training...")
         with open(target_path / MANIFEST) as f:
             results = json.load(f)
-        state = torch.load(target_path / CHECKPOINT, map_location=device, weights_only=True)
-        model.load_state_dict(state["model"])
-        optimizer.load_state_dict(state["optimizer"])
-        scheduler.load_state_dict(state["scheduler"])
+        load_checkpoint(target_path, model, optimizer, scheduler)
         start_epoch = results["epochs_trained"] + 1
         train_losses = results["train_loss_history"]
         valid_losses = results["valid_loss_history"]
@@ -350,7 +459,7 @@ def training_main(argv=None, epoch_callback=None):
                               drop_last=True, workers=args.nb_workers)
     valid_loader = DataLoader(valid_dataset, args.batch_size_valid, shuffle=False)
     metrics_csv = target_path / "metrics.csv"
-    if not metrics_csv.exists():
+    if lead and not metrics_csv.exists():
         metrics_csv.write_text("epoch,train_loss,valid_loss,lr,epoch_time_s\n")
 
     def to_device(batch: np.ndarray) -> torch.Tensor:
@@ -367,7 +476,7 @@ def training_main(argv=None, epoch_callback=None):
         for bi, batch in enumerate(train_loader):
             if args.max_batches_per_epoch > 0 and bi >= args.max_batches_per_epoch:
                 break
-            if args.profile_dir and epoch == start_epoch:   # steps 2-4: the first pays for builds
+            if lead and args.profile_dir and epoch == start_epoch:   # steps 2-4: the first pays for builds
                 if bi == 1 and prof is None:
                     from torch.profiler import ProfilerActivity, profile
 
@@ -379,11 +488,13 @@ def training_main(argv=None, epoch_callback=None):
                     prof = None
             if dropout is not None:
                 dropout.manual_seed(dropout_seed(args.seed, epoch, bi))
+            if mesh is not None:
+                batch = meshlib.shard_batch(batch, mesh)
             loss = train_step(to_device(batch), dropout)
             # read the previous step's loss: a step stays queued while the host reads
             if pending is not None:
                 meter.update(*pending)
-            pending = (loss, batch.shape[0])
+            pending = (loss, batch.shape[0] * (mesh.dp if mesh is not None else 1))
         if pending is not None:
             meter.update(*pending)
         if prof is not None:
@@ -398,6 +509,8 @@ def training_main(argv=None, epoch_callback=None):
                 break
             if args.max_valid_batches > 0 and bi >= args.max_valid_batches:
                 break
+            if mesh is not None and bi % mesh.dp != mesh.dp_rank:     # the dp groups share the batches out
+                continue
             L = batch.shape[-1]
             if args.valid_seq_dur > 0 and L > valid_win:
                 # windows of one shape cover the whole track, the last zero-padded
@@ -410,6 +523,10 @@ def training_main(argv=None, epoch_callback=None):
                 Lpad = slicqt.max_length(slicqt.n_slices(L))
                 batch = np.pad(batch, [(0, 0)] * (batch.ndim - 1) + [(0, max(0, Lpad - L))])
                 vmeter.update(valid_step(to_device(batch)), batch.shape[0])
+        if mesh is not None:
+            tot = mesh.all_reduce_(torch.tensor([vmeter.sum, float(vmeter.count)], dtype=torch.float64,
+                                                device=device), "dp").tolist()
+            vmeter.sum, vmeter.count = tot[0], int(tot[1])
         valid_loss = vmeter.avg
 
         scheduler.step(valid_loss)
@@ -419,7 +536,8 @@ def training_main(argv=None, epoch_callback=None):
         stop = es.step(valid_loss)
         if valid_loss == es.best:
             best_epoch = epoch
-        save_checkpoint(target_path, model, optimizer, scheduler, is_best=valid_loss == es.best)
+        save_checkpoint(target_path, model, optimizer, scheduler, is_best=valid_loss == es.best,
+                        full_model=full_model)
         lr = optimizer.param_groups[0]["lr"]
         manifest = {
             "epochs_trained": epoch,
@@ -433,20 +551,22 @@ def training_main(argv=None, epoch_callback=None):
             "num_bad_epochs": es.num_bad_epochs,
             "scheduler": _scheduler_manifest(scheduler),
         }
-        with open(target_path / MANIFEST, "w") as f:
-            json.dump(manifest, f, indent=4, sort_keys=True)
-        with open(metrics_csv, "a") as f:
-            f.write(f"{epoch},{train_loss},{valid_loss},{lr},{train_times[-1]}\n")
-        if not args.quiet:
+        if lead:
+            with open(target_path / MANIFEST, "w") as f:
+                json.dump(manifest, f, indent=4, sort_keys=True)
+            with open(metrics_csv, "a") as f:
+                f.write(f"{epoch},{train_loss},{valid_loss},{lr},{train_times[-1]}\n")
+        if not quiet:
             print(f"epoch {epoch}: train {train_loss:.5f} valid {valid_loss:.5f} lr {lr:.2e} "
                   f"({train_times[-1]:.1f}s)")
         if epoch_callback is not None and epoch_callback(epoch, float(train_loss), float(valid_loss)):
             break
         if stop:
-            print("Apply Early Stopping")
+            if lead:
+                print("Apply Early Stopping")
             break
 
-    if not args.quiet:
+    if not quiet:
         print(f"total wall time {time.time() - t0_all:.1f}s")
     return train_losses, valid_losses
 

@@ -77,6 +77,7 @@ def objective(trial_params: dict, args, pruner: MedianPruner, trial_id: int):
         "--mask-sum-coef", "0.0",
         "--debug", "--quiet",
         "--device", getattr(args, "device", "cuda"),
+        "--n-devices", "1",              # one process: the pruning callback cannot follow ranks
     ]
     if args.synthetic_dataset:
         argv.append("--synthetic-dataset")
