@@ -49,16 +49,26 @@ the card over gloo, data-parallel (the CDAE at batch 32 of 2 s and the
 LSTM at a small batch) and target-parallel (tp = 2), against the same steps
 in one process, with step and collective times, each rank's memory and
 launches; and the Cadenza runner (enhance, HAAQI in 2 shards, merge) for
-one seeded 30 s song and 2 listeners. Weights are random, drawn from a
-seed. Any failed check exits non-zero.
+one seeded 30 s song and 2 listeners. The chunk batches as the JAX
+package forms them: the canonical LSTM over Separator(devices=[card,
+card]) on the 236 s track and a one-chunk clip (each wave one chunk batch
+on the first replica), and the first card's widest wave at 4 devices (32
+chunks); the CDAE's and the LSTM's forward_device on 9 default chunks
+(waves of 8 and 1), each against _chunk_fn on the same zero-padded wave
+batches; the dp step's collectives a step (one per BatchNorm each way,
+its moments merged in two passes); and one canonical CDAE and LSTM train
+step on an all-zero batch (finite loss and parameters, the backward
+kernels launched). Weights are random, drawn from a seed. Any failed check
+exits non-zero.
 
     python3 chip_smoke.py --phases export_cdae,slicqfinder
 
 runs only the named phases after the build (export_cdae, export_lstm,
 slicqfinder, tuning, profile_stats, separator_devices, msgpack_weights,
-entry, mesh, cadenza; and on a machine with several cards mesh_cards and
-separator_devices_cards, one rank or replica a card, NCCL), for
-development, and prints no result line.
+entry, mesh, cadenza, separator_devices_lstm, lstm_forward_device_waves,
+cdae_forward_device_waves, silent_train_step; and on a machine with
+several cards mesh_cards and separator_devices_cards, one rank or replica
+a card, NCCL), for development, and prints no result line.
 
 Output: one line per phase; before the last line, the card's name and power
 limit as nvidia-smi reports them and one JSON object with the kernels'
@@ -1438,7 +1448,9 @@ def _mesh_run(dev, lstm: bool, batch: int, steps: int, mesh=None) -> dict:
             grads = {n: g.cpu() for n, g in grads.items()} if mesh is None or mesh.rank == 0 else None
     launches = {k: fn.launches for k, fn in counters.items()}
     vloss = float(valid(torch.from_numpy(vbatch).to(dev)))
+    batch_norms = sum(isinstance(m, torch.nn.modules.batchnorm._BatchNorm) for m in model.modules())
     return dict(losses=losses, valid_loss=vloss, step_ms=ms, collective_ms=coll_ms, collective_calls=coll_calls,
+                batch_norms=batch_norms,
                 collective_bytes=coll_bytes, max_memory_allocated_bytes=torch.cuda.max_memory_allocated(dev),
                 launches=launches, params=model.num_params(), grads=grads)
 
@@ -1500,6 +1512,7 @@ def mesh_phases(dev, devices=None):
                     median_step_ms=float(np.median(r0["step_ms"][1:])),
                     one_process_median_step_ms=float(np.median(ref["step_ms"][1:])),
                     collective_ms=[r["collective_ms"] for r in runs], collective_calls=r0["collective_calls"],
+                    batch_norms=r0["batch_norms"],
                     collective_mbytes=r0["collective_bytes"] / 1e6,
                     rank_max_memory_allocated_bytes=[r["max_memory_allocated_bytes"] for r in runs],
                     one_process_max_memory_allocated_bytes=ref["max_memory_allocated_bytes"],
@@ -1525,6 +1538,12 @@ def mesh_phases(dev, devices=None):
         check(r["max_rel"] <= tol, f"{name}: losses {r['max_rel']} from one process > {tol}")
         check(r["grad_worst_ratio"] <= 1.0, f"{name}: the first step's gradient of {r['grad_worst_tensor']} is "
               f"{r['grad_worst_ratio']} times its bound from one process's")
+        if name.startswith("dp_train"):
+            # one collective per BatchNorm forward and one backward (its moments gathered), the LSTM's rows
+            # gathered and their cotangents reduced, the gradients' reduction and the loss's mean: 422 for the CDAE
+            calls = 2 * r["batch_norms"] + 2 + (2 if name == "dp_train lstm" else 0)
+            check(all(c == calls for c in r["collective_calls"]),
+                  f"{name}: {r['collective_calls']} collectives a step, expected {calls}")
         path = ["synth_assembly", "synth_assembly_backward", "wiener_em", "wiener_em_backward"]
         if name == "dp_train lstm":
             path += ["lstm_recurrence", "lstm_recurrence_backward"]
@@ -1719,6 +1738,192 @@ def cadenza_phase(dev):
     shutil.rmtree(root, ignore_errors=True)
 
 
+# -- slice 11: the JAX package's chunk batches for the LSTM, silent training ------------------------------
+
+FORWARD_DEVICE_CHUNKS = 9       # *_forward_device_waves: default chunks, so waves of 8 and 1
+FORWARD_DEVICE_TOL = 1e-5       # ... against _chunk_fn on the same waves: the same programs on the same batches
+DEVICES_CLIP_SECONDS = 30       # separator_devices_lstm: a one-chunk clip, padded to a chunk batch of n_dev
+WIDEST_WAVE = 8 * 4             # ... and the widest wave of 4 devices, which the first card runs alone
+
+
+def _wave_reference(sep, audio: torch.Tensor, n_dev: int) -> torch.Tensor:
+    """(1, C, N) on the card -> (4, 1, C, N): the one-device `_chunk_fn` of
+    `sep` on the chunk batches the JAX package forms over n_dev devices
+    (xumx_slicq_tpu/separator.py:164-185): waves of at most 8 n_dev chunks,
+    each zero-padded to b n_dev chunks, b the least of 1, 2, 4, 8 that holds
+    them; reassembled here, apart from the Separator's own code."""
+    _, C, N = audio.shape
+    chunk = min(sep.chunk_size, max(N, sep.slicqt.sllen // 2 + 1))
+    nchunks = -(-N // chunk)
+    chunks = torch.nn.functional.pad(audio[0], (0, nchunks * chunk - N)).reshape(C, nchunks, chunk).transpose(0, 1)
+    parts = []
+    for ci in range(0, nchunks, 8 * n_dev):
+        take = min(nchunks - ci, 8 * n_dev)
+        batch = torch.zeros((next(b for b in (1, 2, 4, 8) if b * n_dev >= take) * n_dev, C, chunk),
+                            device=audio.device)
+        batch[:take] = chunks[ci: ci + take]
+        with torch.inference_mode():
+            parts.append(sep._chunk_fn(batch)[:, :take])
+    est = torch.cat(parts, dim=1).transpose(1, 2).reshape(4, C, nchunks * chunk)
+    return est[..., :N][:, None]
+
+
+def _lstm_path_counters():
+    from xumx_slicq_torch.kernels.lstm_recurrence import lstm_recurrence
+    from xumx_slicq_torch.kernels.synth_assembly import synth_assembly
+    from xumx_slicq_torch.kernels.wiener_em import wiener_em
+
+    return {"lstm_recurrence": lstm_recurrence, "wiener_em": wiener_em, "synth_assembly": synth_assembly}
+
+
+def separator_devices_lstm(sep, track, devices=None):
+    """The canonical offline LSTM model over Separator(devices=[card, card])
+    on the 236 s track (4 chunks: one wave, a chunk batch of 2 a replica, 4
+    in all) and on a 30 s clip (one chunk, padded to a batch of 2), each
+    against the one-device `_chunk_fn` on the same zero-padded wave batch
+    (`_wave_reference`): the LSTM's sequences run through the wave's whole
+    batch, as the JAX mesh's sharded program runs them, so the first
+    replica runs the wave as one chunk batch: K5 and K2 3 launches and K1
+    one a wave. Then that replica's load at 4 devices: `_chunk_fn` on the
+    widest wave, 32 chunks of noise, its ms (host clock to a synchronise,
+    the second of two calls) and peak memory."""
+    counters = _lstm_path_counters()
+    devices = devices or [sep.device] * 2
+    n_dev = len(devices)
+    many = sep.__class__(sep.slicqt, sep.model, chunk_size=sep.chunk_size, devices=devices)
+    res = {}
+    for name, x in (("track", track), ("clip", np.ascontiguousarray(track[..., : int(DEVICES_CLIP_SECONDS * 44100)]))):
+        ref = _wave_reference(sep, torch.from_numpy(x).to(sep.device), n_dev).cpu().numpy()
+        many(x)                                                    # warm-up
+        torch.cuda.synchronize()
+        times = []
+        for i in range(3):
+            if i == 0:
+                torch.cuda.reset_peak_memory_stats()
+                for fn in counters.values():
+                    fn.launches = 0
+            t0 = time.time()
+            est = many(x)
+            times.append(time.time() - t0)
+            if i == 0:
+                launches = {k: fn.launches for k, fn in counters.items()}
+                peak = torch.cuda.max_memory_allocated()
+                diff = float(np.abs(est - ref).max())
+                check(est.shape == ref.shape == (4, 1, 2, x.shape[-1]) and np.isfinite(est).all(),
+                      f"separator_devices_lstm {name}: bad stems")
+        nchunks = -(-x.shape[-1] // sep.chunk_size)
+        nb = next(b for b in (1, 2, 4, 8) if b * n_dev >= nchunks)
+        res[name] = dict(samples=x.shape[-1], chunks=nchunks, chunk_batch=nb, global_batch=nb * n_dev,
+                         max_abs_diff=diff, s_per_track=times, launches=launches, max_memory_allocated_bytes=peak,
+                         expected_launches={"lstm_recurrence": 3, "wiener_em": 3, "synth_assembly": 1})
+    del many
+    wave = torch.randn((WIDEST_WAVE, 2, sep.chunk_size), generator=torch.Generator(sep.device).manual_seed(5),
+                       device=sep.device) * 0.1
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    wave_ms, finite = [], True
+    for _ in range(2):
+        t0 = time.time()
+        with torch.inference_mode():
+            est = sep._chunk_fn(wave)
+        torch.cuda.synchronize()
+        wave_ms.append((time.time() - t0) * 1e3)
+        finite = finite and bool(torch.isfinite(est).all())
+        del est
+    res["widest_wave"] = dict(chunks=WIDEST_WAVE, ms=wave_ms, finite=finite,
+                              max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
+    del wave
+    torch.cuda.empty_cache()
+    phase("separator_devices_lstm", devices=[str(d) for d in devices], tol=DEVICES_TOL, **res)
+    check(res.pop("widest_wave")["finite"], "separator_devices_lstm: stems of the widest wave not finite")
+    for name, r in res.items():
+        check(r["max_abs_diff"] <= DEVICES_TOL, f"separator_devices_lstm {name}: {r['max_abs_diff']} from "
+              f"_chunk_fn on the wave's batch of {r['global_batch']} > {DEVICES_TOL}")
+        check(r["launches"] == r["expected_launches"], f"separator_devices_lstm {name}: launches {r['launches']}, "
+              f"expected {r['expected_launches']}")
+
+
+def forward_device_waves(sep, name: str):
+    """forward_device of a canonical offline model (`name`: cdae or lstm)
+    on a track of 9 default chunks: the JAX package's waves of 8 and 1
+    chunks on one device (xumx_slicq_tpu/separator.py:286), against
+    `_chunk_fn` on the same two zero-padded chunk batches reassembled by
+    hand; ms a track (host clock to the last result, stems left on the
+    card) and peak memory. Phase `<name>_forward_device_waves`."""
+    counters = _lstm_path_counters()
+    n = FORWARD_DEVICE_CHUNKS * sep.chunk_size - 12345
+    audio = torch.from_numpy((np.random.default_rng(11).standard_normal((1, 2, n)) * 0.1).astype(np.float32))
+    audio = audio.to(sep.device)
+    ref = _wave_reference(sep, audio, 1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.time()
+    est = sep.forward_device(audio)
+    torch.cuda.synchronize()
+    times = [(time.time() - t0) * 1e3]
+    launches = {k: fn.launches for k, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    diff = float((est - ref).abs().max())
+    check(est.shape == ref.shape == (4, 1, 2, n) and bool(torch.isfinite(est).all()),
+          f"{name}_forward_device_waves: bad stems")
+    del est, ref
+    for _ in range(2):
+        t0 = time.time()
+        sep.forward_device(audio)
+        torch.cuda.synchronize()
+        times.append((time.time() - t0) * 1e3)
+    # two chunk batches (8, then 1): K1 once, K2 3 times, K5 3 times (the LSTM) each
+    expected = {"lstm_recurrence": 6 if sep.model.lstm else 0, "wiener_em": 6, "synth_assembly": 2}
+    phase(f"{name}_forward_device_waves", samples=n, chunks=FORWARD_DEVICE_CHUNKS, waves=[8, 1], max_abs_diff=diff,
+          tol=FORWARD_DEVICE_TOL, ms_per_track=times, max_memory_allocated_bytes=peak, launches=launches)
+    check(diff <= FORWARD_DEVICE_TOL, f"{name}_forward_device_waves: {diff} from _chunk_fn on its waves > "
+          f"{FORWARD_DEVICE_TOL}")
+    check(launches == expected, f"{name}_forward_device_waves: launches {launches}, expected {expected}")
+
+
+def silent_train_step(dev, slicqt):
+    """One train step of the canonical CDAE and LSTM models (AdamW, every
+    loss term, SD-SDR on; the LSTM's dropout on) on an all-zero batch of
+    32 items of 2 s: finite loss and finite parameters after AdamW
+    (tests/test_grad_hardening.py:42-59 on the card), with K1b, K2b and
+    K5b launched."""
+    from xumx_slicq_torch.kernels.lstm_recurrence import lstm_recurrence_backward
+    from xumx_slicq_torch.kernels.synth_assembly import synth_assembly_backward
+    from xumx_slicq_torch.kernels.wiener_em import wiener_em_backward
+    from xumx_slicq_torch.models import Unmix
+    from xumx_slicq_torch.training import make_train_step
+
+    counters = {"synth_assembly_backward": synth_assembly_backward, "wiener_em_backward": wiener_em_backward,
+                "lstm_recurrence_backward": lstm_recurrence_backward}
+    length = int(TRAIN_SECONDS * 44100)
+    batch = torch.zeros((TRAIN_BATCH, 5, 2, length), device=dev)
+    res = {}
+    for lstm in (False, True):
+        model = Unmix(slicqt.block_shapes(TRAIN_BATCH, 2, length), lstm=lstm, seed=0, device=dev)
+        step, _ = make_train_step(slicqt, model, torch.optim.AdamW(model.parameters(), lr=1e-3, weight_decay=1e-5),
+                                  sdr_mcoef=0.1)
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.time()
+        loss = float(step(batch, torch.Generator(device=dev).manual_seed(0) if lstm else None))
+        ms = (time.time() - t0) * 1e3
+        bad = [n for n, p in model.named_parameters() if not bool(torch.isfinite(p).all())]
+        res["lstm" if lstm else "cdae"] = dict(loss=loss, step_ms=ms, non_finite_params=bad,
+                                               launches={k: fn.launches for k, fn in counters.items()})
+        del model, step
+        torch.cuda.empty_cache()
+    phase("silent_train_step", batch=TRAIN_BATCH, seconds=TRAIN_SECONDS, **res)
+    for name, r in res.items():
+        check(np.isfinite(r["loss"]) and not r["non_finite_params"],
+              f"silent_train_step {name}: loss {r['loss']}, parameters not finite: {r['non_finite_params']}")
+        path = ["synth_assembly_backward", "wiener_em_backward"] + (["lstm_recurrence_backward"] if name == "lstm"
+                                                                     else [])
+        check(all(r["launches"][k] > 0 for k in path), f"silent_train_step {name}: launches {r['launches']}")
+
+
 def run_only(names, dev, slicqt):
     """A development run (python3 chip_smoke.py --phases a,b): the named
     tool and slice-10 phases alone after the build, with no result line."""
@@ -1737,6 +1942,12 @@ def run_only(names, dev, slicqt):
         separator_devices(sep, (np.random.default_rng(0).standard_normal((1, 2, TRACK_SECONDS * 44100)) * 0.1)
                           .astype(np.float32), devices)
 
+    def lstm_only(fn):
+        sep = Separator(slicqt, Unmix(slicqt.block_shapes(1, 2, 2 * 44100), lstm=True, seed=0, device=dev),
+                        device=dev)
+        track = (np.random.default_rng(0).standard_normal((1, 2, TRACK_SECONDS * 44100)) * 0.1).astype(np.float32)
+        return lambda: fn(sep, track)
+
     def cards():
         n = torch.cuda.device_count()
         check(n >= 2, f"the *_cards phases need 2 or more cards, found {n}")
@@ -1749,7 +1960,12 @@ def run_only(names, dev, slicqt):
                  mesh_cards=lambda: mesh_phases(dev, cards()),
                  separator_devices_cards=lambda: devices_only([torch.device(d) for d in cards()]),
                  msgpack_weights=lambda: msgpack_weights(dev, clip), entry=entry_phase,
-                 cadenza=lambda: cadenza_phase(dev))
+                 cadenza=lambda: cadenza_phase(dev), silent_train_step=lambda: silent_train_step(dev, slicqt),
+                 separator_devices_lstm=lambda: lstm_only(separator_devices_lstm)(),
+                 lstm_forward_device_waves=lambda: lstm_only(lambda sep, _: forward_device_waves(sep, "lstm"))(),
+                 cdae_forward_device_waves=lambda: forward_device_waves(
+                     Separator(slicqt, Unmix(slicqt.block_shapes(1, 2, 2 * 44100), seed=0, device=dev), device=dev),
+                     "cdae"))
     for name in names:
         table[name]()
     print("partial run (--phases): no result line")
@@ -1939,6 +2155,7 @@ def main(argv=()):
     check(launches["wiener_em"] <= 3, f"K2 made {launches['wiener_em']} device launches for one chunk batch")
     profile_stats_phase(*breakdown(sep, slicqt, track, batch, chunk))
     separator_devices(sep, track)
+    forward_device_waves(sep, "cdae")
 
     # -- phase 8: realtime Separator ------------------------------------------
     sep_rt = Separator(slicqt, Unmix(shapes, realtime=True, seed=0, device=dev), device=dev)
@@ -1952,6 +2169,8 @@ def main(argv=()):
     torch.cuda.empty_cache()
     sep_lstm = lstm_separator_cuda_vs_cpu(slicqt, dev, rng)
     lstm_track_236s(sep_lstm, track, kernels, batch)
+    separator_devices_lstm(sep_lstm, track)
+    forward_device_waves(sep_lstm, "lstm")
     del sep_lstm
     lstm_realtime_track_236s(slicqt, dev, track, batch)
     del track
@@ -1976,6 +2195,8 @@ def main(argv=()):
     train_steps(dev, slicqt, kernels, lstm=True)
     torch.cuda.empty_cache()
     trainer_cli(dev, clip, lstm=True)
+    torch.cuda.empty_cache()
+    silent_train_step(dev, slicqt)
 
     # -- phases 24-26: evaluation and the bench --------------------------------
     torch.cuda.empty_cache()

@@ -392,6 +392,34 @@ def test_separator_lstm_matches_jax(lstm_dir, shape):
     np.testing.assert_allclose(a, b, rtol=0, atol=ATOL)
 
 
+@pytest.mark.slow
+def test_forward_device_lstm_matches_jax_past_8_chunks(lstm_dir):
+    """forward_device on 10 chunks: both packages run waves of 8 and 2
+    chunks (xumx_slicq_tpu/separator.py:286), whose zero-padded batches the
+    LSTM's sequences mix in. Compiles two JAX programs (slow)."""
+    ours = Separator.load(model_path=lstm_dir, device=DEVICE, chunk_size=CHUNK)
+    ref = JaxSeparator.load(model_path=lstm_dir, runtime_backend="jax-cpu", chunk_size=CHUNK)
+    x = noise(13, (1, 2, 10 * CHUNK - 100), 0.1)
+    a = ours.forward_device(torch.from_numpy(x)).numpy()
+    b = np.asarray(ref.forward_device(jnp.asarray(x)))
+    assert a.shape == b.shape == (4, 1, 2, x.shape[-1])
+    np.testing.assert_allclose(a, b, rtol=0, atol=ATOL)
+
+
+@pytest.mark.slow
+def test_devices_lstm_matches_jax_mesh_one_chunk(lstm_dir):
+    """One chunk over 2 devices: the JAX mesh pads it to a chunk batch of 2
+    (one zero chunk), and so does the port's Separator(devices=...)."""
+    from xumx_slicq_tpu.parallel.mesh import make_mesh
+
+    ours = Separator.load(model_path=lstm_dir, devices=[DEVICE, DEVICE], chunk_size=CHUNK)
+    ref = JaxSeparator.load(model_path=lstm_dir, mesh=make_mesh(2, platform="cpu"), chunk_size=CHUNK)
+    x = noise(14, (1, 2, CHUNK - 1000), 0.1)
+    a, b = ours(x), np.asarray(ref(x))
+    assert a.shape == b.shape == (4, 1, 2, x.shape[-1])
+    np.testing.assert_allclose(a, b, rtol=0, atol=ATOL)
+
+
 def test_lstm_separator_needs_explicit_cpu(lstm_dir):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

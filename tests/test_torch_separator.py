@@ -74,6 +74,31 @@ def test_separator_batched_and_short_inputs_match_jax(offline_dir):
     np.testing.assert_allclose(d["accomp"], full["bass"] + full["other"] + full["drums"], atol=1e-6)
 
 
+BARK262_ATOL = 1e-4
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("lstm", [False, True], ids=["cdae", "lstm"])
+def test_separator_matches_jax_at_bark262(tmp_path, lstm):
+    """The canonical geometry (bark-262, 70 buckets): both packages'
+    Separator.load on one directory (the port's params.msgpack, weights
+    from seed 0), demixing the mix of 2 s of seeded stems (0.1 RMS each),
+    within 1e-4 absolute. Compiles the JAX program at full width (slow)."""
+    from xumx_slicq_torch.separator import save_model_weights
+
+    args = dict(fscale="bark", fbins=262, fmin=32.9, sample_rate=44100.0, seq_dur=2.0, nb_channels=2,
+                realtime=False, lstm=lstm)
+    (tmp_path / "xumx_slicq_v2.json").write_text(json.dumps({"args": args}))
+    shapes = SliCQT(device=DEVICE).block_shapes(1, 2, 2 * 44100)
+    save_model_weights(tmp_path, Unmix(shapes, lstm=lstm, seed=0, device=DEVICE))
+    ours = Separator.load(model_path=tmp_path, device=DEVICE)
+    ref = JaxSeparator.load(model_path=tmp_path, runtime_backend="jax-cpu")
+    x = noise(21, (1, 4, 2, 2 * 44100), 0.1).sum(1)
+    a, b = ours(x), np.asarray(ref(x))
+    assert a.shape == b.shape == (4, 1, 2, x.shape[-1]) and np.isfinite(a).all()
+    np.testing.assert_allclose(a, b, rtol=0, atol=BARK262_ATOL)
+
+
 def test_separator_needs_explicit_cpu(offline_dir):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

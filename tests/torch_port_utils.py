@@ -103,24 +103,29 @@ def fail_on_rank(rank: int, which: int) -> int:
     return rank
 
 
-def step_gradients(mesh, lstm: bool, batch: np.ndarray) -> dict:
+def step_gradients(mesh, lstm: bool, batch: np.ndarray, double: bool = False, realtime: bool = False) -> dict:
     """One train step (every loss term, SD-SDR included) of the seeded
     mel-12 model on the global batch (B, 5, 2, L), in one process (mesh
     None) or as a rank of `mesh` on its rows: the gradients after the
     reduction across ranks, gathered into the one-process layout. The LSTM
-    draws its dropout from a generator seeded alike on every rank."""
+    draws its dropout from a generator seeded alike on every rank.
+    double: the model and the batch in float64 (the realtime model: K2
+    takes float32 only)."""
     from xumx_slicq_torch.models import Unmix
     from xumx_slicq_torch.ops.slicqt import SliCQT
     from xumx_slicq_torch.parallel.mesh import shard_batch
     from xumx_slicq_torch.training import make_train_step
 
     slicqt = SliCQT(device=DEVICE, **MEL12)
-    model = Unmix(slicqt.block_shapes(batch.shape[0], 2, batch.shape[-1]), lstm=lstm, seed=0, device=DEVICE,
-                  mesh=mesh)
+    model = Unmix(slicqt.block_shapes(batch.shape[0], 2, batch.shape[-1]), lstm=lstm, realtime=realtime, seed=0,
+                  device=DEVICE, mesh=mesh)
+    rows = torch.from_numpy(shard_batch(batch, mesh) if mesh is not None else batch)
+    if double:
+        model.double()
+        rows = rows.double()
     step, _ = make_train_step(slicqt, model, torch.optim.SGD(model.parameters(), lr=0.0), sdr_mcoef=0.1,
                               mesh=mesh)
-    rows = shard_batch(batch, mesh) if mesh is not None else batch
-    step(torch.from_numpy(rows), torch.Generator().manual_seed(7) if lstm else None)
+    step(rows, torch.Generator().manual_seed(7) if lstm else None)
     grads = {name: p.grad for name, p in model.named_parameters()}
     return mesh.gather_state(grads) if mesh is not None else grads
 

@@ -7,9 +7,12 @@ boundary of mixed-precision training, and the default conv initialisation,
 written out so that both packages compute the same thing.
 
 In training across ranks (parallel/mesh.py) BatchNorm's statistics are the
-global batch's: each rank all-reduces its (sum, sum of squares, count) over
-its dp group, differentiably, as the JAX package's sync-BN does over the
-sharded batch (xumx_slicq_tpu/models/nn.py:79-95).
+global batch's, as the JAX package's sync-BN computes them over the sharded
+batch (xumx_slicq_tpu/models/nn.py:79-95, a two-pass `jnp.var`): each rank
+forms its rows' count, mean and sum of squared deviations in two passes,
+the dp group gathers them in one differentiable collective, and every rank
+merges them (Chan et al.). A variance formed in one pass as E[x^2] - m^2
+cancels in float32 when |mean| >> std.
 """
 
 import torch
@@ -29,17 +32,25 @@ def amp_op(op, *operands, amp: bool):
 
 def _global_moments(x: torch.Tensor, dims, mean: torch.Tensor, var: torch.Tensor, momentum: float, mesh):
     """The mean and biased variance of x over `dims` and over the ranks of
-    mesh's dp group (keepdim), from one differentiable all-reduce of
-    (sum, sum of squares, count); the running buffers `mean` and `var`
-    (views broadcastable to the statistics) updated in place with the
-    unbiased variance by the global count."""
-    s1 = x.sum(dims, keepdim=True)
-    s2 = (x * x).sum(dims, keepdim=True)
-    count = x.new_full((1,), x.numel() // s1.numel())
-    tot = mesh.sync_sum(torch.cat([s1.reshape(-1), s2.reshape(-1), count]))
-    n = tot[-1]                                    # a tensor: no host sync
-    m = tot[: s1.numel()].view(s1.shape) / n
-    v = torch.clamp(tot[s1.numel(): 2 * s1.numel()].view(s1.shape) / n - m * m, min=0.0)
+    mesh's dp group (keepdim). Each rank's count n_i, mean m_i and sum of
+    squared deviations M2_i (two passes over its rows) are gathered in one
+    differentiable collective and merged as Chan et al.'s pairwise update:
+    n = sum n_i, m = sum n_i m_i / n, M2 = sum M2_i + n_i (m_i - m)^2,
+    v = M2 / n. The few numbers exchanged and merged are float64: a float32
+    m_i carries ulp(m_i), which the merge's (m_i - m)^2 would turn into a
+    relative error of the variance ~ |mean| / std * 1e-7. The running
+    buffers `mean` and `var` (views broadcastable to the statistics) are
+    updated in place with the unbiased variance by the global count."""
+    m_i = x.mean(dims, keepdim=True, dtype=torch.float64)
+    k = m_i.numel()
+    m2_i = ((x - m_i.to(x.dtype)) ** 2).sum(dims, keepdim=True, dtype=torch.float64)
+    count = m_i.new_full((1,), x.numel() // k)
+    g = mesh.gather_rows(torch.cat([m_i.reshape(-1), m2_i.reshape(-1), count]))    # (dp, 2k + 1)
+    ns, ms, m2s = g[:, -1:], g[:, :k], g[:, k: 2 * k]      # tensors: no host sync
+    n = ns.sum()
+    m = (ns * ms).sum(0) / n
+    v = ((m2s + ns * (ms - m) ** 2).sum(0) / n).view(m_i.shape).to(x.dtype)
+    m = m.view(m_i.shape).to(x.dtype)
     with torch.no_grad():
         mean.copy_((1 - momentum) * mean + momentum * m.view(mean.shape))
         var.copy_((1 - momentum) * var + momentum * (v * (n / torch.clamp(n - 1, min=1))).view(var.shape))

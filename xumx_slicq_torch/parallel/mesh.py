@@ -266,14 +266,6 @@ class Mesh:
         self._run(dist.all_reduce, buf, group=g)
         return buf
 
-    def sync_sum(self, t: torch.Tensor) -> torch.Tensor:
-        """The sum of t over the dp group, differentiable (its backward sums
-        the cotangents over the group): the cross-rank BatchNorm's
-        statistics."""
-        if self.dp == 1:
-            return t
-        return _SyncSum.apply(t, self)
-
     def gather_targets(self, flat: torch.Tensor) -> torch.Tensor:
         """(tp, *flat.shape): the tp group's slices, differentiable. Every
         tp rank computes the same loss from the gathered tensor, so the
@@ -284,7 +276,8 @@ class Mesh:
         return _GatherShared.apply(flat, self)
 
     def gather_rows(self, flat: torch.Tensor) -> torch.Tensor:
-        """(dp, *flat.shape): the dp group's slices, differentiable. Each dp
+        """(dp, *flat.shape): the dp group's slices, differentiable (the
+        LSTM's encoded rows, the cross-rank BatchNorm's moments). Each dp
         rank computes the loss of its own rows from the gathered tensor, so
         the backward sums the cotangents over the group and hands each rank
         its slot."""
@@ -349,17 +342,6 @@ class Mesh:
 
     def _index(self, group: str) -> int:
         return {"world": self.rank, "dp": self.dp_rank, "tp": self.tp_rank}[group]
-
-
-class _SyncSum(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, t, mesh):
-        ctx.mesh = mesh
-        return mesh.all_reduce_(t.detach().clone(), "dp")
-
-    @staticmethod
-    def backward(ctx, g):
-        return ctx.mesh.all_reduce_(g.contiguous().clone(), "dp"), None
 
 
 class _GatherShared(torch.autograd.Function):

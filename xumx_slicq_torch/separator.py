@@ -4,22 +4,33 @@ Port of xumx_slicq_tpu/separator.py. One chunk runs sliCQT analysis ->
 Unmix (the CDAE with BatchNorm folded, or the LSTM with K5's packed
 recurrent weights; embedded Wiener-EM or mix-phase) -> the 4 targets folded
 into the batch -> one inverse sliCQT. Chunking keeps the JAX package's
-contract: the default chunk is 2,621,440 samples (~59.4 s), the last chunk
-is zero-padded to the full chunk size, a single track of 2..8 chunks runs as
-one chunk batch padded to 1, 2, 4 or 8, and anything else runs chunk by
-chunk with the results left on the device until the end. For the CDAE the
-padding is exact (slicing, the CDAE, eval BatchNorm and the Wiener-EM
-statistics are invariant to appended zero slices and zero chunks). For the
-LSTM it is not: its literal reshapes (models/lstm.py) mix the chunks of a
-chunk batch, zero chunks included, into each sequence, so its stems depend
-on this batching, and the port keeps it exactly as the JAX package does.
+contract on every path. The default chunk is 2,621,440 samples (~59.4 s),
+and the last chunk is zero-padded to the full chunk size. `forward` on one
+device runs a single track of 2..8 chunks as one chunk batch padded to 1,
+2, 4 or 8, and anything else chunk by chunk with the results left on the
+device until the end (JAX separator.py:206-258). `forward_device`, and
+every call over several devices, runs a track in waves (JAX
+`_wave_dispatch`, separator.py:164-185): at most 8 x n_dev chunks a wave,
+one chunk batch of b x n_dev chunks, b the smallest of 1, 2, 4, 8 that
+holds the wave, zero chunks padding it. For the CDAE the padding is exact
+(slicing, the CDAE, eval BatchNorm and the Wiener-EM statistics are
+invariant to appended zero slices and zero chunks). For the LSTM it is not:
+its literal reshapes (models/lstm.py) mix the chunks of a chunk batch, zero
+chunks included, into each sequence, so its stems depend on this batching,
+and the port forms the JAX package's chunk batches exactly.
 
 Several devices (`devices=[...]`, the counterpart of the JAX package's
-`mesh=`): a replica of the model on each, and a track's chunks go out in
-waves of at most 8 x n_dev chunks, each device taking an equal chunk batch
-from the buckets 1, 2, 4, 8 (JAX separator.py:164-232). A device may be
-listed twice. For the CDAE the stems equal the single-device Separator's;
-the LSTM's depend on the chunk batching (above), here each device's own.
+`mesh=`): a replica of the model on each, replica d taking chunks
+d b .. (d + 1) b - 1 of a wave's batch. A device may be listed twice. The
+CDAE runs each replica's chunks on their own. An LSTM model's masks are
+the wave's whole batch's, as the JAX mesh's sharded program computes them,
+so the first replica runs each LSTM wave as one `_chunk_fn` on the wave's
+b x n_dev chunks (zero chunks too: a one-chunk track is padded to n_dev
+chunks, as the JAX mesh pads it). So the stems of either model are those
+of the one-device `_chunk_fn` on the wave's chunk batch. The LSTM's other
+replicas stay idle: at n_dev = 4 a wave of up to 32 chunks runs on the
+first card (its time and peak memory: chip_smoke.py's
+separator_devices_lstm).
 
 Model directories hold a JSON manifest (`xumx_slicq_tpu.json` or the
 reference's `xumx_slicq_v2.json`) and weights: the JAX package's native
@@ -127,8 +138,9 @@ class Separator:
         nchunks = -(-N // chunk)
 
         if len(self.replicas) > 1:
-            # each item over the devices in turn (JAX separator.py:205-230)
-            return np.concatenate([self._forward_waves(audio_big[b: b + 1], chunk, nchunks) for b in range(B)], axis=1)
+            # each item over the devices in turn (JAX separator.py:205-230); one item's stems are not copied again
+            outs = [self._forward_waves(audio_big[b: b + 1], chunk, nchunks) for b in range(B)]
+            return outs[0] if B == 1 else np.concatenate(outs, axis=1)
 
         if B == 1 and 1 < nchunks <= self._CHUNK_BATCH_BUCKETS[-1]:
             # one track: all chunks in one call, batch padded to a bucket
@@ -169,14 +181,16 @@ class Separator:
         while ci < nchunks:
             take = min(nchunks - ci, cap)
             nb = next(b for b in self._CHUNK_BATCH_BUCKETS if b * n_dev >= take)
-            for d, replica in enumerate(self.replicas):
-                lo = ci + d * nb
-                if lo >= ci + take:
-                    break
+            if self.model.lstm and n_dev > 1:
+                # the LSTM's sequences run through the wave's whole chunk batch (module docstring): one call
+                jobs = [(self, ci, nb * n_dev)]
+            else:
+                jobs = [(replica, ci + d * nb, nb) for d, replica in enumerate(self.replicas) if d * nb < take]
+            for replica, lo, size in jobs:
                 # the replica's card current while it launches: the hand-written kernels launch on the current one
                 card = torch.cuda.device(replica.device) if replica.device.type == "cuda" else contextlib.nullcontext()
                 with card, torch.inference_mode():
-                    parts.append((min(nb, ci + take - lo), replica._chunk_fn(stage(lo, nb, replica.device))))
+                    parts.append((min(size, ci + take - lo), replica._chunk_fn(stage(lo, size, replica.device))))
             ci += take
         return torch.cat([est[:, :n].to(self.device) for n, est in parts], dim=1)
 
@@ -201,9 +215,9 @@ class Separator:
         """Single-track forward on the device (xumx_slicq_tpu/separator.py:
         260-289): (1, C, N) audio on (or staged to) this Separator's device
         -> (4, 1, C, N) estimates that stay there, for scoring in place
-        (ops/bsseval.DeviceBssEval). The chunking and chunk-batch buckets
-        are `forward`'s, with the padding and reassembly done on the
-        device."""
+        (ops/bsseval.DeviceBssEval). The chunks run in the JAX package's
+        waves (`_waves`), on one device too, with the padding and
+        reassembly done on the device."""
         audio = audio.to(self.device)
         B, C, N = audio.shape
         if B != 1:
@@ -212,18 +226,12 @@ class Separator:
         nchunks = -(-N // chunk)
         flat = torch.nn.functional.pad(audio[0].to(torch.float32), (0, nchunks * chunk - N))
         flat = flat.reshape(C, nchunks, chunk).transpose(0, 1)             # (nchunks, C, chunk)
-        if len(self.replicas) > 1:
-            def stage(lo, nb, device):
-                blk = flat[lo: lo + nb]
-                return torch.nn.functional.pad(blk, (0, 0, 0, 0, 0, nb - len(blk))).to(device)
 
-            est = self._waves(chunk, nchunks, stage)
-        elif 1 < nchunks <= self._CHUNK_BATCH_BUCKETS[-1]:
-            nb = next(b for b in self._CHUNK_BATCH_BUCKETS if b >= nchunks)
-            est = self._chunk_fn(torch.nn.functional.pad(flat, (0, 0, 0, 0, 0, nb - nchunks)))
-            est = est[:, :nchunks]                                         # (4, nchunks, C, chunk)
-        else:
-            est = torch.cat([self._chunk_fn(flat[ci: ci + 1].contiguous()) for ci in range(nchunks)], dim=1)
+        def stage(lo, nb, device):
+            blk = flat[lo: lo + nb]
+            return torch.nn.functional.pad(blk, (0, 0, 0, 0, 0, nb - len(blk))).contiguous().to(device)
+
+        est = self._waves(chunk, nchunks, stage)                           # (4, nchunks, C, chunk)
         est = est.transpose(1, 2).reshape(4, C, nchunks * chunk)[..., :N]
         return est[:, None]                                                # (4, 1, C, N)
 
