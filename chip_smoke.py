@@ -3,10 +3,12 @@
 
     python3 chip_smoke.py
 
-Builds the port's kernels from this checkout (K1 with nvcc into
-build/xumx_slicq_torch/, K2 with Triton), holds each against its plain
+Builds the port's kernels from this checkout (K1, K3 and K5 with nvcc
+into build/xumx_slicq_torch/, K2 with Triton), holds each against its plain
 PyTorch version at the shapes of the main path (K2 as one grouped call
-over all 70 buckets of the packed layout), checks the canonical
+over all 70 buckets of the packed layout; K3, the analysis gather and
+weight of all 70 buckets in one launch, also at the train step's two
+layouts), checks the canonical
 bark-262 transform round trip on the card, runs the full-width offline
 Separator on the card and on the CPU and compares the stems, demixes a
 seeded 236 s stereo track (the MUSDB18-HQ test-set average length) with
@@ -14,7 +16,7 @@ launch counts and timings, and runs the realtime Separator once. Then the
 LSTM variant: K5 (CUDA C++, the LSTM recurrence) against its plain version
 over all 70 buckets offline and realtime, at 2 s and at the main path's
 layout, timed there beside cuDNN's LSTM and per hidden size (ns a step of
-each group's longest chain), its error against a float64 walk, the
+each group's longest chain), its error against a float64 walk (offline), the
 canonical LSTM Separator on the card against the CPU, the 236 s track
 through it offline and realtime, its realtime model once, and the LSTM at
 --fscale linear --fbins 262 (H = 132 and 263) on the card against the CPU.
@@ -26,7 +28,7 @@ memory and a profile, and the trainer's CLI with a resume and a reload.
 Last, training the LSTM variant: K5's train-mode forward and K5b (its
 backward through time) against their plain versions at the training
 layout, offline and realtime, timed beside cuDNN's LSTM and per hidden
-size (with and without K5b's separate d(W_hh) passes); one LSTM train
+size; one LSTM train
 step on the card against the CPU at mel-12; 13 canonical LSTM train steps
 with K5 and K5b launches counted; and the trainer's CLI with --lstm.
 Then evaluation: the BSS-eval v4 engine on the card against the float64
@@ -37,7 +39,8 @@ device-resident evaluation throughput) in processes of their own.
 Last, the tools: the canonical offline CDAE and LSTM models exported with
 torch.export at one default chunk (K1, K2 and K5 as registered ops), each
 artifact loaded in a fresh process and held to Separator._chunk_fn with
-its launches per call; the oracle sliCQT search over 6 seeded configs on
+its launches per call (K3 and K1 once, K2 3 times, K5 3 times for the
+LSTM); the oracle sliCQT search over 6 seeded configs on
 the card, one config's oracle SDR against the CPU; two tuning trials at
 bark-262; and utils.profile_stats held to torch.profiler's own totals on
 the track's profile. Then several devices and ranks: the 236 s track
@@ -49,7 +52,7 @@ the card over gloo, data-parallel (the CDAE at batch 32 of 2 s and the
 LSTM at a small batch) and target-parallel (tp = 2), against the same steps
 in one process, with step and collective times, each rank's memory and
 launches; and the Cadenza runner (enhance, HAAQI in 2 shards, merge) for
-one seeded 30 s song and 2 listeners. The chunk batches as the JAX
+one seeded 10 s song and 2 listeners. The chunk batches as the JAX
 package forms them: the canonical LSTM over Separator(devices=[card,
 card]) on the 236 s track and a one-chunk clip (each wave one chunk batch
 on the first replica), and the first card's widest wave at 4 devices (32
@@ -63,8 +66,8 @@ exits non-zero.
 
     python3 chip_smoke.py --phases export_cdae,slicqfinder
 
-runs only the named phases after the build (export_cdae, export_lstm,
-slicqfinder, tuning, profile_stats, separator_devices, msgpack_weights,
+runs only the named phases after the build (k3_analysis_gather,
+export_cdae, export_lstm, slicqfinder, tuning, profile_stats, separator_devices, msgpack_weights,
 entry, mesh, cadenza, separator_devices_lstm, lstm_forward_device_waves,
 cdae_forward_device_waves, silent_train_step; and on a machine with
 several cards mesh_cards and separator_devices_cards, one rank or replica
@@ -91,6 +94,7 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory rate (data sheet)
 FP32_FLOPS = 67e12              # H100 SXM fp32 outside the tensor cores (data sheet)
 TRACK_SECONDS = 236             # MUSDB18-HQ test-set average track length
 K1_TOL = 1e-5                   # max |kernel - plain| / max |plain|: same sums, FMA contraction
+K3_TOL = 1e-6                   # K3, per bucket, max |kernel - plain| / max |plain|: one complex product an output
 K2_TOL = 1e-4                   # same, per bucket: fp32 division/sqrt rounding through the 2x2 inverse
 ROUNDTRIP_TOL = 1e-5            # transform round trip on unit-variance noise
 STEM_TOL = 1e-4                 # |cuda - cpu| stems, fp32 both sides with TF32 off, 0.1-RMS input
@@ -291,6 +295,72 @@ def profiled(fn, name: str):
             [[k[:60], c, ms] for k, c, ms in top(agg["host_ops"], 8)])
 
 
+def k3_analysis_gather(slicqt, g, kernels, batch: int, chunk: int):
+    """K3 against its plain version (the per-bucket loop it replaced) at the
+    inference layout (a chunk batch of `batch` default chunks, stereo) and
+    at the train step's two calls (32 mixtures and 128 targets of 2.0 s),
+    per bucket to K3_TOL, each timed beside the plain version and its bound;
+    then SliCQT.forward at the inference layout: its K3 launches (one a
+    call), its ms and its device launches from one profiled call."""
+    from xumx_slicq_torch.kernels.analysis_gather import analysis_gather, analysis_gather_plain
+    from xumx_slicq_torch.ops.packed import PackedBlocks
+
+    dev = slicqt.device
+    table = slicqt.analysis_table
+    K = table.K
+    src = table.entries[:, 0].cpu().numpy()
+    positions = int(np.unique(np.where(src < 0, ~src, src)).size)   # half-spectrum positions K3 reads
+    train_len = int(TRAIN_SECONDS * 44100)
+    res = {}
+    for name, B, length in (("inference", batch, chunk), ("train_mixtures", TRAIN_BATCH, train_len),
+                            ("train_targets", 4 * TRAIN_BATCH, train_len)):
+        with torch.inference_mode():
+            X = slicqt.half_spectrum(torch.randn((B, 2, length), generator=g, device=dev))
+            N, S = B * 2, X.shape[2]
+            layout = slicqt.layout(B, 2, S)
+            ref = PackedBlocks(torch.empty(layout.size, dtype=torch.complex64, device=dev), layout)
+            analysis_gather_plain(X, slicqt.forward_tables, ref)
+            before = analysis_gather.launches
+            out = analysis_gather(X, table)
+            torch.cuda.synchronize()
+            check(analysis_gather.launches == before + 1, f"K3 {name}: one call launched "
+                  f"{analysis_gather.launches - before} kernels")
+            err, rel = 0.0, 0.0
+            for a, b in zip(PackedBlocks(out, layout), ref):
+                e = float((a - b).abs().max())
+                err, rel = max(err, e), max(rel, e / float(b.abs().max()))
+            del out
+            ms = cuda_ms(lambda: analysis_gather(X, table), reps=20)
+            plain_ms = cuda_ms(lambda: analysis_gather_plain(X, slicqt.forward_tables, ref), reps=3, warm=1)
+        # read each half-spectrum position once per (row, slice), the table and both
+        # parities' weights once; write every coefficient once. 6 fp32 operations an output
+        nbytes = N * S * positions * 8 + K * (16 + 16) + N * S * K * 8
+        b_ms, b_by = bound(nbytes, N * S * K * 6)
+        res[name] = dict(rows=N, slices=S, coefficients=N * S * K, max_abs_err=err, rel_err=rel, ms=ms,
+                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, share_of_bound=b_ms / ms,
+                         gbytes=nbytes / 1e9)
+        check(rel <= K3_TOL, f"K3 {name} disagrees with its plain version: rel err {rel} > {K3_TOL} per bucket")
+        del X, ref
+    a = torch.randn((batch, 2, chunk), generator=g, device=dev) * 0.1
+    with torch.inference_mode():
+        before = analysis_gather.launches
+        slicqt.forward(a)
+        torch.cuda.synchronize()
+        per_forward = analysis_gather.launches - before
+        forward_ms = cuda_ms(lambda: slicqt.forward(a), reps=5)
+        wall, busy, n_launches, top, _ = profiled(lambda: slicqt.forward(a), "k3_slicqt_forward")
+    phase("k3_analysis_gather", buckets=len(slicqt.buckets), K=K, positions_read=positions, tol=K3_TOL, **res,
+          slicqt_forward=dict(k3_launches_per_call=per_forward, ms=forward_ms, profiled_wall_ms=wall,
+                              device_busy_ms=busy if busy is not None else "not measured",
+                              device_launches=n_launches, top_kernels=top))
+    check(per_forward == 1, f"SliCQT.forward launched K3 {per_forward} times, expected 1")
+    inf = res["inference"]
+    kernels["analysis_gather"] = dict(
+        name="analysis_gather", route="cuda", source="xumx_slicq_torch/csrc/analysis_gather.cu",
+        replaces="xumx_slicq_tpu/ops/slicqt.py:678", max_abs_err=max(r["max_abs_err"] for r in res.values()),
+        ms=inf["ms"], plain_ms=inf["plain_ms"], bound_ms=inf["bound_ms"], bound_by=inf["bound_by"], library_ms=None)
+
+
 def k1_backward(slicqt, g, kernels):
     """K1's backward against its plain version at the training shapes:
     4 targets x batch 32 x 2 channels, 2.0 s."""
@@ -451,37 +521,12 @@ def k5_per_hidden(layout, xp, w, clock_mhz: float):
     return rows
 
 
-def k5b_walk_only():
-    """K5b's entry point from csrc/lstm_recurrence.cu built with
-    K5B_NO_DW_PASS (its separate d(W_hh) passes left out; d(W_hh) summed
-    inside the walk stays), for timing the walk apart; None when the source
-    has no such passes to leave out."""
-    import ctypes
-
-    from xumx_slicq_torch.kernels import build
-
-    src = build.CSRC / "lstm_recurrence.cu"
-    if "K5B_NO_DW_PASS" not in src.read_text():
-        return None
-    out = build.BUILD_DIR / "k5b_walk_only"
-    out.mkdir(parents=True, exist_ok=True)
-    lib = out / "liblstm_recurrence.so"
-    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-DK5B_NO_DW_PASS", "-o", str(lib), str(src)], check=True,
-                   capture_output=True)
-    fn = ctypes.CDLL(str(lib)).lstm_recurrence_backward
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-                                           ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def k5b_per_hidden(layout, xp, w, h, c, dh, clock_mhz: float, walk_fn=None):
+def k5b_per_hidden(layout, xp, w, h, c, dh, clock_mhz: float):
     """K5b on the buckets of each hidden size alone (as k5_per_hidden): per H
     the buckets, the longest chain, the launch's ms (with the sum of its
     d(W_hh) rows) and ns (and cycles at the max SM clock) a step of that
-    chain; with walk_fn (k5b_walk_only) also the walk's ms without the
-    separate d(W_hh) pass."""
-    from xumx_slicq_torch.kernels.lstm_recurrence import _device_plan, lstm_recurrence_backward
+    chain."""
+    from xumx_slicq_torch.kernels.lstm_recurrence import lstm_recurrence_backward
 
     rows = {}
     for H in sorted(set(layout.hidden)):
@@ -491,18 +536,6 @@ def k5b_per_hidden(layout, xp, w, h, c, dh, clock_mhz: float, walk_fn=None):
         steps = max(sub.frames)
         rows[H] = dict(buckets=len(sub.hidden), steps=steps, ms=ms, ns_per_step=ms * 1e6 / steps,
                        cycles_per_step=ms * 1e3 * clock_mhz / steps)
-        if walk_fn is not None:
-            items, smem = _device_plan(sub, xp.device, backward=True)
-            dxp = torch.empty_like(args[0])
-            parts = torch.empty((sub.batch, sub.w_size), device=xp.device)
-            stream = torch.cuda.current_stream().cuda_stream
-            ptrs = [t.data_ptr() for t in args[:5]] + [dxp.data_ptr(), parts.data_ptr()]
-
-            def walk():
-                check(walk_fn(*ptrs, sub.w_size, items.data_ptr(), items.shape[0], smem, stream) == 0,
-                      "K5b walk-only launch failed")
-            walk_ms = cuda_ms(walk, reps=3, warm=1)
-            rows[H].update(walk_ms=walk_ms, walk_ns_per_step=walk_ms * 1e6 / steps, dw_pass_ms=ms - walk_ms)
     return rows
 
 
@@ -526,8 +559,8 @@ def k5_lstm_recurrence(slicqt, g, kernels, batch: int, S: int):
     the longest chains); there K5 per layer with its bound (the larger of
     its byte time and its serial floor), the plain version's time and
     cuDNN's beside it, K5 on each hidden-size group alone (ns a step of its
-    longest chain), and K5's error on the longest chain and on the widest
-    bucket against a float64 walk."""
+    longest chain), and, offline, K5's error on the longest chain and on the
+    widest bucket against a float64 walk."""
     from xumx_slicq_torch.kernels.lstm_recurrence import lstm_recurrence, lstm_recurrence_grouped_plain
 
     S2 = slicqt.n_slices(2 * 44100)
@@ -571,7 +604,8 @@ def k5_lstm_recurrence(slicqt, g, kernels, batch: int, S: int):
               f"{err} > {K5_TOL}")
         longest = max(range(len(layout.frames)), key=lambda k: (layout.frames[k], -layout.hidden[k]))
         widest = max(range(len(layout.hidden)), key=lambda k: layout.hidden[k])
-        f64 = k5_error_f64(layout, xp, w, [longest, widest])
+        # against a float64 walk on the main path's layout only: the walk takes as long as the plain one
+        f64 = [] if realtime else k5_error_f64(layout, xp, w, [longest, widest])
         check(all(e <= K5_TOL for *_, e in f64), f"K5 {name} against a float64 walk: {f64} > {K5_TOL}")
         main[name] = dict(max_abs_err=err, ms=cuda_ms(lambda: lstm_recurrence(xp, w, layout), reps=5),
                           plain_ms=start.elapsed_time(end), bound_ms=max(byte_ms, op_ms, floor_ms),
@@ -629,12 +663,9 @@ def lstm_separator_cuda_vs_cpu(slicqt, dev, rng):
 
 def lstm_track_236s(sep, track, kernels, batch: int):
     """The 236 s track through the offline LSTM Separator: one chunk batch,
-    so K5 launches once per layer, 3 times; K2 and K1 on the path too."""
-    from xumx_slicq_torch.kernels.lstm_recurrence import lstm_recurrence
-    from xumx_slicq_torch.kernels.synth_assembly import synth_assembly
-    from xumx_slicq_torch.kernels.wiener_em import wiener_em
-
-    counters = {"lstm_recurrence": lstm_recurrence, "wiener_em": wiener_em, "synth_assembly": synth_assembly}
+    so K5 launches once per layer, 3 times, K3 once; K2 and K1 on the path
+    too."""
+    counters = _lstm_path_counters()
     sep(track)                                                 # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -658,6 +689,8 @@ def lstm_track_236s(sep, track, kernels, batch: int):
     check(launches["lstm_recurrence"] == 3, f"K5 made {launches['lstm_recurrence']} launches for one chunk batch, "
           "expected 3 (one a layer)")
     check(launches["wiener_em"] > 0 and launches["synth_assembly"] > 0, f"LSTM path kernel launches {launches}")
+    check(launches["analysis_gather"] == 1, f"K3 made {launches['analysis_gather']} launches for one chunk batch, "
+          "expected 1")
     kernels["lstm_recurrence"]["launches"] = launches["lstm_recurrence"]
     breakdown(sep, sep.slicqt, track, batch, sep.chunk_size, name="lstm_track_breakdown", model="lstm")
 
@@ -816,6 +849,7 @@ def train_steps(dev, slicqt, kernels, lstm: bool = False):
     launches of every kernel counted per step, peak memory and one profiled
     step."""
     from xumx_slicq_torch.data import DataLoader, SyntheticDataset
+    from xumx_slicq_torch.kernels.analysis_gather import analysis_gather
     from xumx_slicq_torch.kernels.lstm_recurrence import lstm_recurrence, lstm_recurrence_backward
     from xumx_slicq_torch.kernels.synth_assembly import synth_assembly, synth_assembly_backward
     from xumx_slicq_torch.kernels.wiener_em import wiener_em, wiener_em_backward
@@ -824,7 +858,8 @@ def train_steps(dev, slicqt, kernels, lstm: bool = False):
 
     counters = {"synth_assembly": synth_assembly, "synth_assembly_backward": synth_assembly_backward,
                 "wiener_em": wiener_em, "wiener_em_backward": wiener_em_backward,
-                "lstm_recurrence": lstm_recurrence, "lstm_recurrence_backward": lstm_recurrence_backward}
+                "lstm_recurrence": lstm_recurrence, "lstm_recurrence_backward": lstm_recurrence_backward,
+                "analysis_gather": analysis_gather}
     loader = DataLoader(SyntheticDataset(n_tracks=8, seq_duration=TRAIN_SECONDS, samples_per_track=4, seed=0),
                         TRAIN_BATCH, shuffle=True, seed=0, drop_last=True, workers=4)
 
@@ -879,6 +914,7 @@ def train_steps(dev, slicqt, kernels, lstm: bool = False):
     for i, n in enumerate(per_step):
         check(n["wiener_em"] == 3 and n["wiener_em_backward"] == 2, f"step {i + 1}: K2 launches {n}")
         check(n["lstm_recurrence"] == k5 and n["lstm_recurrence_backward"] == k5, f"step {i + 1}: K5 launches {n}")
+        check(n["analysis_gather"] == 2, f"step {i + 1}: K3 launches {n}, expected 2 (mixture and targets)")
         sdr = i >= 10
         check((n["synth_assembly_backward"] > 0) == sdr and (n["synth_assembly"] > 0) == sdr,
               f"step {i + 1}: K1 launches {n} (SD-SDR {sdr})")
@@ -944,14 +980,14 @@ def k5_backward(slicqt, g, kernels):
     kernel's own h and c; a second K5b run must give the same bits. Per
     layer: K5b's ms (its launch and the sum of its d(W_hh) rows), its byte
     bound and serial floor, the plain versions' ms and cuDNN's; per hidden
-    size, K5b alone and its walk without the separate d(W_hh) pass."""
+    size, K5b alone (tools/k5_ab.py --walk-only times its walk without the
+    separate d(W_hh) pass)."""
     from xumx_slicq_torch.kernels.lstm_recurrence import (lstm_recurrence, lstm_recurrence_backward,
                                                           lstm_recurrence_backward_grouped_plain,
                                                           lstm_recurrence_grouped_plain, lstm_recurrence_with_cell)
 
     S2 = slicqt.n_slices(int(TRAIN_SECONDS * 44100))
     clock_mhz = max_sm_clock_mhz()
-    walk_fn = k5b_walk_only()
     res = {}
     for realtime in (False, True):
         name = "realtime" if realtime else "offline"
@@ -1007,7 +1043,7 @@ def k5_backward(slicqt, g, kernels):
                          gbytes=nbytes / 1e9,
                          serial_floor_ms=max(layout.frames) * STEP_CHAIN_CYCLES_BACKWARD / (clock_mhz * 1e3),
                          cudnn_forward_ms=cudnn_fwd_ms, cudnn_backward_ms=cudnn_bwd_ms,
-                         per_hidden=k5b_per_hidden(layout, xp, w, h, c, dh, clock_mhz, walk_fn))
+                         per_hidden=k5b_per_hidden(layout, xp, w, h, c, dh, clock_mhz))
         del xp, w, dh, h, c, dxp, dw
         torch.cuda.empty_cache()
     phase("k5_backward", tol=K5B_TOL, batch=TRAIN_BATCH, slices=S2, step_chain_cycles=STEP_CHAIN_CYCLES_BACKWARD,
@@ -1210,7 +1246,7 @@ def export_phase(dev, lstm: bool):
     check(child.returncode == 0, f"{name}: the fresh process failed: {child.stdout[-2000:]} {child.stderr[-3000:]}")
     res = json.loads(out_json.read_text())
     (chunk,) = meta["chunks"]
-    want = dict(synth_assembly=1, wiener_em=3, lstm_recurrence=3 if lstm else 0)
+    want = dict(synth_assembly=1, analysis_gather=1, wiener_em=3, lstm_recurrence=3 if lstm else 0)
     phase(name, chunk_len=EXPORT_CHUNK, batch=1, export_s=export_s, export_trace_and_save_s=chunk["seconds"],
           artifact_bytes=chunk["bytes"], ops_exported=chunk["ops"], fresh_process_s=child_s, tol=EXPORT_TOL,
           expected_launches_per_call=want, **res)
@@ -1233,13 +1269,15 @@ def exported_child(export_dir: str, model_dir: str, out_json: str):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from xumx_slicq_torch.export import ExportedSeparator
+    from xumx_slicq_torch.kernels.analysis_gather import analysis_gather
     from xumx_slicq_torch.kernels.lstm_recurrence import lstm_recurrence
     from xumx_slicq_torch.kernels.ops import graph_op_counts
     from xumx_slicq_torch.kernels.synth_assembly import synth_assembly
     from xumx_slicq_torch.kernels.wiener_em import wiener_em
     from xumx_slicq_torch.separator import Separator
 
-    counters = dict(synth_assembly=synth_assembly, wiener_em=wiener_em, lstm_recurrence=lstm_recurrence)
+    counters = dict(synth_assembly=synth_assembly, analysis_gather=analysis_gather, wiener_em=wiener_em,
+                    lstm_recurrence=lstm_recurrence)
     dev = torch.device("cuda")
     t0 = time.time()
     es = ExportedSeparator(export_dir)
@@ -1267,18 +1305,14 @@ def exported_child(export_dir: str, model_dir: str, out_json: str):
             torch.cuda.synchronize()
             per_call.append({k: c.launches - before[k] for k, c in counters.items()})
         artifact_ms, artifact_first_ms = timed(lambda: fn(chunk))
-        artifact_prof = profiled(lambda: fn(chunk), Path(out_json).stem + "_artifact")
     sep = Separator.load(model_path=model_dir, device=dev, chunk_size=None)
     with torch.inference_mode():
         ref = sep._chunk_fn(chunk)
         separator_ms, _ = timed(lambda: sep._chunk_fn(chunk))
-        separator_prof = profiled(lambda: sep._chunk_fn(chunk), Path(out_json).stem + "_separator")
     res = dict(max_abs_diff=float((est - ref).abs().max()), stem_max=float(ref.abs().max()),
                shape=list(est.shape), finite=bool(torch.isfinite(est).all()), launches_per_call=per_call,
                ops_loaded=graph_op_counts(prog.graph), graph_nodes=len(prog.graph.nodes), load_s=load_s,
                artifact_ms=artifact_ms, artifact_timed_first_ms=artifact_first_ms, separator_ms=separator_ms,
-               # one profiled call each: (wall ms, device busy ms, device events)
-               artifact_profiled=artifact_prof[:3], separator_profiled=separator_prof[:3],
                max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
     Path(out_json).write_text(json.dumps(res))
 
@@ -1388,7 +1422,7 @@ DEVICES_TOL = 2e-5              # separator_devices against one device (tests/te
 # msgpack_weights: the same weights (checked bit-equal) in two model instances on the card; their stems differed by
 # 3.0e-8 on 0.1-RMS input in the first run (the instances' cuDNN and K2 runs are not bit-reproducible)
 MSGPACK_STEM_TOL = 1e-6
-CADENZA_SECONDS, CADENZA_LISTENERS = 30, 2
+CADENZA_SECONDS, CADENZA_LISTENERS = 10, 2
 
 
 def _mesh_batches(length: int, batch: int, steps: int):
@@ -1659,7 +1693,7 @@ def _cadenza_evaluate(config_overrides: dict, batch: int, batch_size: int):
 def cadenza_phase(dev):
     """The Cadenza runner end to end with the canonical CDAE on the card:
     enhance (demix, NAL-R per listener, 24 kHz stems and a 32 kHz remix)
-    one seeded 30 s song for 2 listeners, evaluate HAAQI in 2 shards in
+    one seeded 10 s song for 2 listeners, evaluate HAAQI in 2 shards in
     processes of their own, merge. Separation seconds on the card against
     NAL-R and HAAQI seconds on the host."""
     import shutil
@@ -1769,11 +1803,13 @@ def _wave_reference(sep, audio: torch.Tensor, n_dev: int) -> torch.Tensor:
 
 
 def _lstm_path_counters():
+    from xumx_slicq_torch.kernels.analysis_gather import analysis_gather
     from xumx_slicq_torch.kernels.lstm_recurrence import lstm_recurrence
     from xumx_slicq_torch.kernels.synth_assembly import synth_assembly
     from xumx_slicq_torch.kernels.wiener_em import wiener_em
 
-    return {"lstm_recurrence": lstm_recurrence, "wiener_em": wiener_em, "synth_assembly": synth_assembly}
+    return {"lstm_recurrence": lstm_recurrence, "wiener_em": wiener_em, "synth_assembly": synth_assembly,
+            "analysis_gather": analysis_gather}
 
 
 def separator_devices_lstm(sep, track, devices=None):
@@ -1784,7 +1820,7 @@ def separator_devices_lstm(sep, track, devices=None):
     (`_wave_reference`): the LSTM's sequences run through the wave's whole
     batch, as the JAX mesh's sharded program runs them, so the first
     replica runs the wave as one chunk batch: K5 and K2 3 launches and K1
-    one a wave. Then that replica's load at 4 devices: `_chunk_fn` on the
+    and K3 one a wave. Then that replica's load at 4 devices: `_chunk_fn` on the
     widest wave, 32 chunks of noise, its ms (host clock to a synchronise,
     the second of two calls) and peak memory."""
     counters = _lstm_path_counters()
@@ -1815,7 +1851,8 @@ def separator_devices_lstm(sep, track, devices=None):
         nb = next(b for b in (1, 2, 4, 8) if b * n_dev >= nchunks)
         res[name] = dict(samples=x.shape[-1], chunks=nchunks, chunk_batch=nb, global_batch=nb * n_dev,
                          max_abs_diff=diff, s_per_track=times, launches=launches, max_memory_allocated_bytes=peak,
-                         expected_launches={"lstm_recurrence": 3, "wiener_em": 3, "synth_assembly": 1})
+                         expected_launches={"lstm_recurrence": 3, "wiener_em": 3, "synth_assembly": 1,
+                                            "analysis_gather": 1})
     del many
     wave = torch.randn((WIDEST_WAVE, 2, sep.chunk_size), generator=torch.Generator(sep.device).manual_seed(5),
                        device=sep.device) * 0.1
@@ -1874,8 +1911,9 @@ def forward_device_waves(sep, name: str):
         sep.forward_device(audio)
         torch.cuda.synchronize()
         times.append((time.time() - t0) * 1e3)
-    # two chunk batches (8, then 1): K1 once, K2 3 times, K5 3 times (the LSTM) each
-    expected = {"lstm_recurrence": 6 if sep.model.lstm else 0, "wiener_em": 6, "synth_assembly": 2}
+    # two chunk batches (8, then 1): K1 and K3 once, K2 3 times, K5 3 times (the LSTM) each
+    expected = {"lstm_recurrence": 6 if sep.model.lstm else 0, "wiener_em": 6, "synth_assembly": 2,
+                "analysis_gather": 2}
     phase(f"{name}_forward_device_waves", samples=n, chunks=FORWARD_DEVICE_CHUNKS, waves=[8, 1], max_abs_diff=diff,
           tol=FORWARD_DEVICE_TOL, ms_per_track=times, max_memory_allocated_bytes=peak, launches=launches)
     check(diff <= FORWARD_DEVICE_TOL, f"{name}_forward_device_waves: {diff} from _chunk_fn on its waves > "
@@ -1965,7 +2003,9 @@ def run_only(names, dev, slicqt):
                  lstm_forward_device_waves=lambda: lstm_only(lambda sep, _: forward_device_waves(sep, "lstm"))(),
                  cdae_forward_device_waves=lambda: forward_device_waves(
                      Separator(slicqt, Unmix(slicqt.block_shapes(1, 2, 2 * 44100), seed=0, device=dev), device=dev),
-                     "cdae"))
+                     "cdae"),
+                 k3_analysis_gather=lambda: k3_analysis_gather(slicqt, torch.Generator(device=dev).manual_seed(3), {},
+                                                               4, 2621440))
     for name in names:
         table[name]()
     print("partial run (--phases): no result line")
@@ -1982,6 +2022,7 @@ def main(argv=()):
     check(Path(xumx_slicq_torch.__file__).resolve().parent.parent == ROOT,
           f"xumx_slicq_torch imported from {xumx_slicq_torch.__file__}, not from {ROOT}")
     from xumx_slicq_torch.kernels import build
+    from xumx_slicq_torch.kernels.analysis_gather import analysis_gather
     from xumx_slicq_torch.kernels.synth_assembly import synth_assembly, synth_assembly_plain
     from xumx_slicq_torch.kernels import triton_wiener_em
     from xumx_slicq_torch.kernels.wiener_em import (_device_tables, stability_scale, wiener_em, wiener_em_grouped,
@@ -2060,6 +2101,9 @@ def main(argv=()):
         plain_ms=k1_plain_ms, bound_ms=k1_bound, bound_by=k1_by, library_ms=None)
     del flat
 
+    # -- phase 3b: K3 against its plain version, inference and train layouts ---
+    k3_analysis_gather(slicqt, g, kernels, batch, chunk)
+
     # -- phase 4: K2, one grouped call over all 70 buckets ---------------------
     layout = slicqt.layout(batch, 2, S)
     xk, vk = k2_inputs(layout, g)
@@ -2133,11 +2177,13 @@ def main(argv=()):
     torch.cuda.reset_peak_memory_stats()
     synth_assembly.launches = 0
     wiener_em.launches = 0
+    analysis_gather.launches = 0
     t0 = time.time()
     est = sep(track)                                           # the counted main-path run
     torch.cuda.synchronize()
     times = [time.time() - t0]
-    launches = {"synth_assembly": synth_assembly.launches, "wiener_em": wiener_em.launches}
+    launches = {"synth_assembly": synth_assembly.launches, "wiener_em": wiener_em.launches,
+                "analysis_gather": analysis_gather.launches}
     peak = torch.cuda.max_memory_allocated()
     check(est.shape == (4, 1, 2, N_track) and np.isfinite(est).all(), "bad stems for the 236 s track")
     del est   # a caller that keeps the stems makes the next demix page-lock fresh host memory
@@ -2153,6 +2199,7 @@ def main(argv=()):
         check(n > 0, f"kernel {name} was not launched on the main path")
         kernels[name]["launches"] = n
     check(launches["wiener_em"] <= 3, f"K2 made {launches['wiener_em']} device launches for one chunk batch")
+    check(launches["analysis_gather"] == 1, f"K3 made {launches['analysis_gather']} launches for one chunk batch")
     profile_stats_phase(*breakdown(sep, slicqt, track, batch, chunk))
     separator_devices(sep, track)
     forward_device_waves(sep, "cdae")

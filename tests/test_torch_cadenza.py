@@ -15,7 +15,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from torch_port_utils import port_model_dir
+from torch_port_utils import one_thread_env, port_model_dir
 
 import cadenza.haaqi as jax_haaqi
 import cadenza.signal_processing as jax_sp
@@ -98,7 +98,7 @@ print(json.dumps({"sr": cfg.sample_rate, "nfir": cfg.nalr.nfir, "meta": cfg.path
         y = Path(d) / "override.yaml"
         y.write_text("# user settings\nsample_rate: 22050   # Hz\nnalr:\n  nfir: 100\n")
         res = subprocess.run([sys.executable, "-c", code, str(ROOT), str(y)], capture_output=True, text=True,
-                             timeout=60)
+                             timeout=60, env=one_thread_env())
     assert res.returncode == 0, res.stderr
     out = json.loads(res.stdout.strip().splitlines()[-1])
     assert out == {"sr": 44100, "nfir": 220, "meta": "/CADENZA/cad1/task1/metadata", "device": "cuda",

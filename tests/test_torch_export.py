@@ -1,5 +1,5 @@
 """The port's export: torch.export artifacts of the chunk pipeline on the CPU,
-with K1, K2 and K5 as registered ops (kernels/ops.py).
+with K1, K2, K3 and K5 as registered ops (kernels/ops.py).
 
 Tolerances: a saved and reloaded CPU artifact against the port's Separator
 within 1e-5 absolute on 0.1-RMS input (the bound tests/test_export.py holds
@@ -56,7 +56,8 @@ def test_cpu_artifact_reloads_and_matches_separator(cdae_export):
 def test_exported_graph_holds_one_node_per_kernel(cdae_export):
     _, out, meta = cdae_export
     counts = kernel_ops.graph_op_counts(ExportedSeparator(out, device="cpu").program(CHUNK).graph)
-    assert counts == dict(synth_assembly=1, wiener_em_grouped=1, lstm_recurrence=0, lstm_recurrence_cell=0)
+    assert counts == dict(synth_assembly=1, analysis_gather=1, wiener_em_grouped=1, lstm_recurrence=0,
+                          lstm_recurrence_cell=0)
     assert meta["chunks"][0]["ops"] == counts
 
 
@@ -110,8 +111,8 @@ def test_lstm_exports_with_three_recurrence_nodes(tmp_path):
     t0 = time.time()
     meta = export_model(d, tmp_path / "out", chunk_lens=(CHUNK,), device="cpu")
     assert time.time() - t0 < 30
-    assert meta["chunks"][0]["ops"] == dict(synth_assembly=1, wiener_em_grouped=1, lstm_recurrence=3,
-                                           lstm_recurrence_cell=0)
+    assert meta["chunks"][0]["ops"] == dict(synth_assembly=1, analysis_gather=1, wiener_em_grouped=1,
+                                           lstm_recurrence=3, lstm_recurrence_cell=0)
     x = noise(2, (1, 2, CHUNK), 0.1)
     est = ExportedSeparator(tmp_path / "out", device="cpu")(x)
     ref = Separator.load(model_path=d, device=DEVICE, chunk_size=CHUNK)(x)
@@ -123,8 +124,8 @@ def test_realtime_export_has_no_wiener_node(tmp_path):
     input shorter than a chunk at a shorter chunk length."""
     d = port_model_dir(tmp_path / "model", realtime=True)
     meta = export_model(d, tmp_path / "out", chunk_lens=(CHUNK,), device="cpu")
-    assert meta["chunks"][0]["ops"] == dict(synth_assembly=1, wiener_em_grouped=0, lstm_recurrence=0,
-                                           lstm_recurrence_cell=0)
+    assert meta["chunks"][0]["ops"] == dict(synth_assembly=1, analysis_gather=1, wiener_em_grouped=0,
+                                           lstm_recurrence=0, lstm_recurrence_cell=0)
     x = noise(3, (1, 2, CHUNK), 0.1)
     est = ExportedSeparator(tmp_path / "out", device="cpu")(x)
     ref = Separator.load(model_path=d, device=DEVICE, chunk_size=CHUNK)(x)
@@ -135,6 +136,7 @@ def test_ops_on_cpu_are_the_plain_versions():
     """Each registered op's CPU implementation is its kernel's plain version."""
     from xumx_slicq_torch.kernels.lstm_recurrence import (RecurrenceLayout, _device_plan, layout_args,
                                                           lstm_recurrence_grouped_plain)
+    from xumx_slicq_torch.kernels.analysis_gather import gather_flat_plain
     from xumx_slicq_torch.kernels.synth_assembly import synth_assembly_plain
 
     t = SliCQT(device=DEVICE, **MEL12)
@@ -143,6 +145,9 @@ def test_ops_on_cpu_are_the_plain_versions():
     tab = t.synth_table
     assert torch.equal(kernel_ops.synth_assembly(flat, tab.idx, tab.w_re, tab.w_im, tab.unrot),
                        synth_assembly_plain(flat, tab))
+    X = torch.randn((2, 5, t.nh), generator=g, dtype=torch.complex64)
+    at = t.analysis_table
+    assert torch.equal(kernel_ops.analysis_gather(X, at.entries, at.w), gather_flat_plain(X, at.entries, at.w))
     layout = t.layout(1, 2, 5)
     x = torch.randn(layout.size, generator=g, dtype=torch.complex64)
     v = torch.rand(4 * layout.size, generator=g)
@@ -171,6 +176,9 @@ def test_opcheck_on_cpu():
     tab = t.synth_table
     flat = torch.randn((2, 3, t.raw_len), generator=g, dtype=torch.complex64)
     torch.library.opcheck(kernel_ops.synth_assembly, (flat, tab.idx, tab.w_re, tab.w_im, tab.unrot))
+    at = t.analysis_table
+    torch.library.opcheck(kernel_ops.analysis_gather,
+                          (torch.randn((2, 3, t.nh), generator=g, dtype=torch.complex64), at.entries, at.w))
     layout = t.layout(1, 2, 3)
     tables = k2._device_tables(layout, torch.device("cpu"))
     x = torch.randn(layout.size, generator=g, dtype=torch.complex64)

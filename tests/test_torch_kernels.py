@@ -1,4 +1,4 @@
-"""K1, K2 and K5 against their plain PyTorch versions on the card.
+"""K1, K2, K3 and K5 against their plain PyTorch versions on the card.
 
     python -m pytest -m cuda --noconftest tests/test_torch_kernels.py
 
@@ -6,7 +6,8 @@ Every test needs an NVIDIA GPU with sm_90 (the kernels build for sm_90a)
 and skips without one; the check runs inside a fixture, so every test
 worker collects the same tests. Tolerances are relative to the largest
 plain value (of each bucket, for K2): 1e-5 for K1 and its backward (the
-same sums; only FMA contraction differs), and 1e-4 for K2 and its backward
+same sums; only FMA contraction differs), 1e-6 per bucket for K3 (one
+complex product an output), and 1e-4 for K2 and its backward
 (fp32 division and square-root rounding through the 2x2 inverse, and row
 sums taken in another order). K5 (the LSTM recurrence) is held to 1e-4
 absolute on h, |h| < 1: accurate expf/tanhf against the CPU's sigmoid and
@@ -19,6 +20,7 @@ same arithmetic in another order through up to 3,212 steps.
 import pytest
 import torch
 
+from xumx_slicq_torch.kernels.analysis_gather import analysis_gather, analysis_gather_plain
 from xumx_slicq_torch.kernels.lstm_recurrence import (RecurrenceLayout, lstm_recurrence, lstm_recurrence_backward,
                                                       lstm_recurrence_backward_grouped_plain,
                                                       lstm_recurrence_grouped_plain, lstm_recurrence_with_cell,
@@ -67,6 +69,30 @@ def test_k1_matches_plain(cuda, cfg, S):
     assert synth_assembly.launches == before + 1
     assert out.shape == (8, S, t.nh)
     assert _rel(out, synth_assembly_plain(flat, t.synth_table)) < 1e-5
+
+
+@pytest.mark.parametrize("cfg,batch,length", [(MEL12, 4, 2621440), ({}, 4, 2621440), ({}, 32 * 5, TRAIN_LEN)],
+                         ids=["mel-12", "bark-262-default-chunk", "bark-262-train-step"])
+def test_k3_matches_plain(cuda, cfg, batch, length):
+    """K3 against the per-bucket loop on the card, 1e-6 of each bucket's
+    largest value; `SliCQT.forward` launches it once."""
+    t = SliCQT(device=cuda, **cfg)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn((batch, 2, length), generator=g, device=cuda)
+    X = t.half_spectrum(x)
+    B, C, S, _ = X.shape
+    layout = t.layout(B, C, S)
+    ref = PackedBlocks(torch.empty(layout.size, dtype=torch.complex64, device=cuda), layout)
+    analysis_gather_plain(X, t.forward_tables, ref)
+    before = analysis_gather.launches
+    got = PackedBlocks(analysis_gather(X, t.analysis_table), layout)
+    torch.cuda.synchronize()
+    assert analysis_gather.launches == before + 1
+    for a, b in zip(got, ref):
+        assert float((a - b).abs().max()) <= 1e-6 * float(b.abs().max())
+    with torch.inference_mode():
+        t.forward(x)
+    assert analysis_gather.launches == before + 2
 
 
 @pytest.mark.parametrize("B,F,T", [(1, 3, 500), (2, 5, 41 * 16), (1, 86, 292 * 16), (4, 1, 292 * 292)],
@@ -475,6 +501,7 @@ def test_k5b_wide_buckets(cuda, H, held, dirs):
 def _op_cases(cuda):
     """(name, op, CUDA args, the plain result on the CPU, launch counter) of each registered op."""
     from xumx_slicq_torch.kernels import ops
+    from xumx_slicq_torch.kernels.analysis_gather import gather_flat_plain
     from xumx_slicq_torch.kernels.lstm_recurrence import _device_plan, layout_args
     from xumx_slicq_torch.kernels.wiener_em import _device_tables, layout_ints
 
@@ -491,9 +518,13 @@ def _op_cases(cuda):
     w = torch.randn(rl.w_size, generator=g) * 0.3
     items, smem = _device_plan(rl, cuda)
     k5_args = (xp.to(cuda), w.to(cuda), items, smem, *layout_args(rl))
+    at = t.analysis_table
+    X = torch.randn((8, 41, t.nh), generator=g, dtype=torch.complex64)
     return [
         ("synth_assembly", ops.synth_assembly, (flat.to(cuda), tab.idx, tab.w_re, tab.w_im, tab.unrot),
          [synth_assembly_plain(flat, SliCQT(device="cpu", **MEL12).synth_table)], synth_assembly, 1),
+        ("analysis_gather", ops.analysis_gather, (X.to(cuda), at.entries, at.w),
+         [gather_flat_plain(X, at.entries.cpu(), at.w.cpu())], analysis_gather, 1),
         ("wiener_em_grouped", ops.wiener_em_grouped,
          (x.to(cuda), v.to(cuda), tables["buckets"], tables["items1"], tables["items2"], layout_ints(layout)),
          [wiener_em_grouped_plain(x, v, layout)], wiener_em, K2_LAUNCHES),
@@ -504,11 +535,11 @@ def _op_cases(cuda):
     ]
 
 
-@pytest.mark.parametrize("which", range(4), ids=["k1", "k2", "k5", "k5_cell"])
+@pytest.mark.parametrize("which", range(5), ids=["k1", "k3", "k2", "k5", "k5_cell"])
 def test_registered_op_on_the_card_matches_plain(cuda, which):
     """Each op's CUDA implementation launches its kernel (counted) and agrees
-    with the plain version at the kernel's tolerance (1e-5 for K1, 1e-4 for
-    K2 per the largest value, 1e-4 absolute for K5's h and c)."""
+    with the plain version at the kernel's tolerance (1e-5 for K1, 1e-6 for
+    K3, 1e-4 for K2 per the largest value, 1e-4 absolute for K5's h and c)."""
     name, op, args, plain, counter, launches = _op_cases(cuda)[which]
     before = counter.launches
     out = op(*args)
@@ -520,10 +551,10 @@ def test_registered_op_on_the_card_matches_plain(cuda, which):
         if name.startswith("lstm"):
             assert float((got.cpu() - ref).abs().max()) <= K5_TOL
         else:
-            assert _rel(got.cpu(), ref) <= (1e-5 if name == "synth_assembly" else 1e-4)
+            assert _rel(got.cpu(), ref) <= {"synth_assembly": 1e-5, "analysis_gather": 1e-6}.get(name, 1e-4)
 
 
-@pytest.mark.parametrize("which", range(4), ids=["k1", "k2", "k5", "k5_cell"])
+@pytest.mark.parametrize("which", range(5), ids=["k1", "k3", "k2", "k5", "k5_cell"])
 def test_registered_op_opcheck_on_the_card(cuda, which):
     _, op, args, _, _, _ = _op_cases(cuda)[which]
     torch.library.opcheck(op, args)
@@ -532,8 +563,8 @@ def test_registered_op_opcheck_on_the_card(cuda, which):
 @pytest.mark.parametrize("lstm", [False, True], ids=["cdae", "lstm"])
 def test_export_round_trip_on_the_card(cuda, tmp_path, lstm):
     """A mel-12 model exported on the card, saved, loaded again: its graph
-    holds the xumx_slicq op nodes, a call launches K1 once and K2 three
-    times (and K5 three times for the LSTM), and it reproduces the
+    holds the xumx_slicq op nodes, a call launches K1 and K3 once and K2
+    three times (and K5 three times for the LSTM), and it reproduces the
     Separator's chunk within 1e-5."""
     import json
 
@@ -555,14 +586,14 @@ def test_export_round_trip_on_the_card(cuda, tmp_path, lstm):
     assert meta["device"] == "cuda"
     es = ExportedSeparator(tmp_path / "out")
     counts = graph_op_counts(es.program(16384).graph)
-    assert counts["synth_assembly"] == 1 and counts["wiener_em_grouped"] == 1
+    assert counts["synth_assembly"] == 1 and counts["analysis_gather"] == 1 and counts["wiener_em_grouped"] == 1
     assert counts["lstm_recurrence"] == (3 if lstm else 0)
     x = (np.random.default_rng(0).standard_normal((1, 2, 16384)) * 0.1).astype(np.float32)
-    before = (synth_assembly.launches, wiener_em.launches, lstm_recurrence.launches)
+    before = (synth_assembly.launches, analysis_gather.launches, wiener_em.launches, lstm_recurrence.launches)
     est = es(x)
     torch.cuda.synchronize()
-    moved = (synth_assembly.launches - before[0], wiener_em.launches - before[1],
-             lstm_recurrence.launches - before[2])
-    assert moved == (1, K2_LAUNCHES, 3 if lstm else 0)
+    moved = (synth_assembly.launches - before[0], analysis_gather.launches - before[1],
+             wiener_em.launches - before[2], lstm_recurrence.launches - before[3])
+    assert moved == (1, 1, K2_LAUNCHES, 3 if lstm else 0)
     ref = Separator.load(model_path=d, device=cuda, chunk_size=16384)(x)
     np.testing.assert_allclose(est, ref, rtol=0, atol=1e-5)

@@ -21,6 +21,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+import torch_goldens as goldens
 from torch_port_utils import DEVICE, MEL12, TINY_ARGS, TINY_LEN, noise
 
 from xumx_slicq_tpu.models import Unmix as JaxUnmix
@@ -369,27 +370,72 @@ def test_lstm_trains_and_keeps_batchnorm_unfolded():
 @pytest.fixture(scope="module")
 def lstm_dir(tmp_path_factory):
     """A mel-12 LSTM model directory written by the port."""
-    d = tmp_path_factory.mktemp("lstm")
+    return _write_lstm_dir(tmp_path_factory.mktemp("lstm"))
+
+
+SEPARATOR_CASES = {"chunk-batch-padded-to-4": (1, 2, 2 * CHUNK + 3000), "chunk-by-chunk-B2": (2, 2, CHUNK - 1000)}
+
+
+def _separator_inputs(lstm_dir, case):
+    """The case's seeded 0.1-RMS input and the fingerprint of it and of the
+    directory's weights."""
+    x = noise(12, SEPARATOR_CASES[case], 0.1)
+    return x, goldens.state_fingerprint(torch.load(lstm_dir / "xumx_slicq_v2.pth", weights_only=True), x)
+
+
+def _jax_separator_stems(lstm_dir, x) -> np.ndarray:
+    ref = JaxSeparator.load(model_path=lstm_dir, runtime_backend="jax-cpu", chunk_size=CHUNK)
+    return np.asarray(ref(x))
+
+
+def _port_separator_stems(lstm_dir, x) -> np.ndarray:
+    ours = Separator.load(model_path=lstm_dir, device=DEVICE, chunk_size=CHUNK)
+    assert ours.model.lstm and not ours.model.realtime
+    return ours(x)
+
+
+@pytest.mark.parametrize("case", list(SEPARATOR_CASES))
+def test_separator_lstm_matches_jax(lstm_dir, case):
+    """Both packages' Separator.load on the same directory. 3 chunks run as
+    one chunk batch padded to 4 with a zero chunk, which the LSTM's
+    sequences mix in (models/lstm.py): the stems agree only because both
+    batch the chunks alike. B = 2 runs chunk by chunk. The JAX package's
+    stems are the golden tests/goldens/lstm_separator_<case>.npz
+    (test_separator_lstm_golden_matches_live_jax recomputes it)."""
+    x, inputs = _separator_inputs(lstm_dir, case)
+    b = goldens.load(f"lstm_separator_{case}", inputs)["stems"]
+    a = _port_separator_stems(lstm_dir, x)
+    assert a.shape == b.shape == (4, x.shape[0], 2, x.shape[-1])
+    np.testing.assert_allclose(a, b, rtol=0, atol=ATOL)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("case", list(SEPARATOR_CASES))
+def test_separator_lstm_golden_matches_live_jax(lstm_dir, case):
+    x, inputs = _separator_inputs(lstm_dir, case)
+    live = _jax_separator_stems(lstm_dir, x)
+    np.testing.assert_allclose(goldens.load(f"lstm_separator_{case}", inputs)["stems"], live, rtol=0, atol=ATOL)
+    np.testing.assert_allclose(_port_separator_stems(lstm_dir, x), live, rtol=0, atol=ATOL)
+
+
+def _write_lstm_dir(d):
     (d / "xumx_slicq_v2.json").write_text(json.dumps({"args": dict(TINY_ARGS, lstm=True)}))
     shapes = SliCQT(device=DEVICE, **MEL12).block_shapes(1, 2, TINY_LEN)
     torch.save(to_reference_state_dict(_port_unmix(shapes, realtime=False)), d / "xumx_slicq_v2.pth")
     return d
 
 
-@pytest.mark.parametrize("shape", [(1, 2, 2 * CHUNK + 3000), (2, 2, CHUNK - 1000)],
-                         ids=["chunk-batch-padded-to-4", "chunk-by-chunk-B2"])
-def test_separator_lstm_matches_jax(lstm_dir, shape):
-    """Both packages' Separator.load on the same directory. 3 chunks run as
-    one chunk batch padded to 4 with a zero chunk, which the LSTM's
-    sequences mix in (models/lstm.py): the stems agree only because both
-    batch the chunks alike. B = 2 runs chunk by chunk."""
-    ours = Separator.load(model_path=lstm_dir, device=DEVICE, chunk_size=CHUNK)
-    assert ours.model.lstm and not ours.model.realtime
-    ref = JaxSeparator.load(model_path=lstm_dir, runtime_backend="jax-cpu", chunk_size=CHUNK)
-    x = noise(12, shape, 0.1)
-    a, b = ours(x), np.asarray(ref(x))
-    assert a.shape == b.shape == (4, shape[0], 2, shape[-1])
-    np.testing.assert_allclose(a, b, rtol=0, atol=ATOL)
+def _golden_separator(case):
+    import tempfile
+    from pathlib import Path
+
+    with tempfile.TemporaryDirectory() as tmp:
+        d = _write_lstm_dir(Path(tmp))
+        x, inputs = _separator_inputs(d, case)
+        return inputs, dict(stems=_jax_separator_stems(d, x))
+
+
+GOLDENS = {f"lstm_separator_{case}": (lambda case=case: _golden_separator(case)) for case in SEPARATOR_CASES}
 
 
 @pytest.mark.slow

@@ -42,6 +42,7 @@ import jax
 import jax.numpy as jnp
 import optax
 
+import torch_goldens as goldens
 from torch_port_utils import DEVICE, MEL12, keep_grads, noise, norm_rel
 
 from xumx_slicq_tpu import loss as jloss
@@ -253,54 +254,106 @@ def _to_jax(model, shapes, realtime, amp=False):
     return ju, jax.tree.map(np.array, params), jax.tree.map(np.array, stats)
 
 
-@pytest.mark.parametrize("realtime,sdr_mcoef", [(False, 0.1), (True, -1.0)], ids=["offline-sdsdr", "realtime"])
-def test_lstm_train_step_matches_jax(realtime, sdr_mcoef):
-    """One step with dropout off on both sides (no generator; rng=None):
-    offline with every loss term (complex MSE, mask sum and SD-SDR, so
-    gradients pass K2's and K1's backward, then K5b's) and realtime. Loss,
-    every gradient, the running statistics and the AdamW update. Each
-    gradient is held to a norm floor of 1e-2 of the largest gradient norm
-    (see the module's docstring); the update of a tensor whose gradient
-    lies under that floor, to at most lr, as in test_torch_training."""
+STEP_CASES = {"offline-sdsdr": (False, 0.1), "realtime": (True, -1.0)}
+
+
+def _step_inputs(case):
+    """The seeded model and batch of one step case, and their fingerprint."""
     batch = _batch()
-    shapes, model = _mel12_model(realtime)
+    shapes, model = _mel12_model(STEP_CASES[case][0])
+    return shapes, model, batch, goldens.state_fingerprint(model.state_dict(), batch)
+
+
+def _jax_step(case, shapes, model, batch) -> dict:
+    """The JAX package's step on the port model's weights (rng=None, dropout
+    off): its loss, gradients and parameters after AdamW in the port's
+    names, as numpy arrays ("loss", "grad/<name>", "after/<name>")."""
+    realtime, sdr_mcoef = STEP_CASES[case]
     ju, params, stats = _to_jax(model, shapes, realtime)
     opt = optax.chain(keep_grads(), optax.adamw(LR, weight_decay=WD))
     jstep, _ = jax_make_train_step(JaxSliCQT(**MEL12), ju, opt, sdr_mcoef=sdr_mcoef)
     p1, s1, o1, jl = jstep(params, stats, opt.init(params), jnp.asarray(batch))
     grads = lstm_params_from_jax(jax.tree.map(np.array, o1[0]), stats)
     after = lstm_params_from_jax(jax.tree.map(np.array, p1), jax.tree.map(np.array, s1))
+    return dict(loss=np.asarray(float(jl)), **{f"grad/{k}": grads[k].numpy() for k, _ in model.named_parameters()},
+                **{f"after/{k}": v.numpy() for k, v in after.items()})
 
-    before = {k: v.clone() for k, v in model.state_dict().items()}
+
+def _port_step(case, model, batch) -> dict:
+    """The port's step on `model` (updated in place), in `_jax_step`'s format."""
     optimizer = torch.optim.AdamW(model.parameters(), lr=LR, weight_decay=WD)
-    step, _ = make_train_step(SliCQT(device=DEVICE, **MEL12), model, optimizer, sdr_mcoef=sdr_mcoef)
+    step, _ = make_train_step(SliCQT(device=DEVICE, **MEL12), model, optimizer, sdr_mcoef=STEP_CASES[case][1])
     loss = float(step(torch.from_numpy(batch)))
-    ours = {n: p.grad for n, p in model.named_parameters()}
+    return dict(loss=np.asarray(loss), **{f"grad/{n}": p.grad.numpy() for n, p in model.named_parameters()},
+                **{f"after/{k}": v.numpy() for k, v in model.state_dict().items()})
 
-    assert abs(loss - float(jl)) <= 1e-5 * abs(float(jl))
-    norms = {n: float(torch.linalg.vector_norm(grads[n])) for n in ours}
+
+def _assert_step_matches(got: dict, ref: dict, before: dict):
+    """Loss, every gradient, the running statistics and the AdamW update of
+    `got` against `ref` (both `_jax_step`'s format), from the weights
+    `before`, at the bounds of the module's docstring."""
+    got = {k: torch.from_numpy(np.asarray(v)) for k, v in got.items()}
+    ref = {k: torch.from_numpy(np.asarray(v)) for k, v in ref.items()}
+    loss, jl = float(got["loss"]), float(ref["loss"])
+    assert abs(loss - jl) <= 1e-5 * abs(jl)
+    names = [k[5:] for k in got if k.startswith("grad/")]
+    norms = {n: float(torch.linalg.vector_norm(ref["grad/" + n])) for n in names}
     floor = 1e-2 * max(norms.values())
-    for name, g in ours.items():
-        assert g is not None and torch.isfinite(g).all(), name
-        assert norm_rel(g, grads[name], floor) <= 1e-4, name
-    for name, a in model.state_dict().items():
+    for name in names:
+        g = got["grad/" + name]
+        assert torch.isfinite(g).all(), name
+        assert norm_rel(g, ref["grad/" + name], floor) <= 1e-4, name
+    for name, b in before.items():
+        a, r = got["after/" + name], ref["after/" + name]
         if "running_" in name:
-            assert float((a - after[name]).abs().max()) <= 1e-6 * max(1.0, float(after[name].abs().max())), name
+            assert float((a - r).abs().max()) <= 1e-6 * max(1.0, float(r.abs().max())), name
         elif name in norms and norms[name] >= floor:
             # Adam's first step g / (|g| + eps) turns rounding noise in entries near its eps into update noise
-            big = grads[name].abs() >= 100 * ADAM_EPS
-            assert norm_rel((a - before[name])[big], (after[name] - before[name])[big]) <= 1e-3, name
+            big = ref["grad/" + name].abs() >= 100 * ADAM_EPS
+            assert norm_rel((a - b)[big], (r - b)[big]) <= 1e-3, name
         elif name in norms:             # Adam's first step follows the sign of rounding noise: at most lr
-            assert float((a - before[name]).abs().max()) <= LR * (1.01 + WD * float(a.abs().max())), name
+            assert float((a - b).abs().max()) <= LR * (1.01 + WD * float(a.abs().max())), name
 
 
-def test_lstm_bf16_loss_matches_jax_amp():
-    """--bf16 with --lstm: the port's step with bf16 operands for the
-    projections and Linear layers against the JAX package's amp=True loss
-    (the train step's loss_fn, training.py:245-260, forward only, rng=None).
-    Master weights stay float32."""
+@pytest.mark.parametrize("case", list(STEP_CASES))
+def test_lstm_train_step_matches_jax(case):
+    """One step with dropout off on both sides (no generator; rng=None):
+    offline with every loss term (complex MSE, mask sum and SD-SDR, so
+    gradients pass K2's and K1's backward, then K5b's) and realtime. Loss,
+    every gradient, the running statistics and the AdamW update. Each
+    gradient is held to a norm floor of 1e-2 of the largest gradient norm
+    (see the module's docstring); the update of a tensor whose gradient
+    lies under that floor, to at most lr, as in test_torch_training. The
+    JAX package's step is the golden tests/goldens/lstm_train_step_<case>.npz
+    (test_lstm_train_step_golden_matches_live_jax recomputes it)."""
+    _, model, batch, inputs = _step_inputs(case)
+    ref = goldens.load(f"lstm_train_step_{case}", inputs)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    _assert_step_matches(_port_step(case, model, batch), ref, before)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("case", list(STEP_CASES))
+def test_lstm_train_step_golden_matches_live_jax(case):
+    """The golden of test_lstm_train_step_matches_jax recomputed from the JAX
+    package: the port's step and the file, each held to it at that test's
+    bounds."""
+    shapes, model, batch, inputs = _step_inputs(case)
+    live = _jax_step(case, shapes, model, batch)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    _assert_step_matches(goldens.load(f"lstm_train_step_{case}", inputs), live, before)
+    _assert_step_matches(_port_step(case, model, batch), live, before)
+
+
+def _bf16_inputs():
     batch = _batch()
     shapes, model = _mel12_model(amp=True)
+    return shapes, model, batch, goldens.state_fingerprint(model.state_dict(), batch)
+
+
+def _jax_bf16_loss(shapes, model, batch) -> float:
+    """The JAX package's amp=True loss (the train step's loss_fn,
+    training.py:245-260, forward only, rng=None) on the port model's weights."""
     ju, params, stats = _to_jax(model, shapes, False, amp=True)
     j = JaxSliCQT(**MEL12)
 
@@ -312,12 +365,48 @@ def test_lstm_bf16_loss_matches_jax_amp():
         Y_tgt = [c[:, 1:].swapaxes(0, 1) for c in blocks5]
         return jloss.complex_mse_loss(Y_est, Y_tgt) + jloss.mask_sum_loss(Y_masks)
 
-    ref = float(jax_loss(params, stats, jnp.asarray(batch)))
+    return float(jax_loss(params, stats, jnp.asarray(batch)))
+
+
+def _port_bf16_loss(model, batch) -> float:
     optimizer = torch.optim.AdamW(model.parameters(), lr=LR, weight_decay=WD)
     step, _ = make_train_step(SliCQT(device=DEVICE, **MEL12), model, optimizer)
     loss = float(step(torch.from_numpy(batch)))
-    assert abs(loss - ref) <= 1e-2 * abs(ref)
     assert all(p.dtype == torch.float32 for p in model.state_dict().values() if p.is_floating_point())
+    return loss
+
+
+def test_lstm_bf16_loss_matches_jax_amp():
+    """--bf16 with --lstm: the port's step with bf16 operands for the
+    projections and Linear layers against the JAX package's amp=True loss,
+    the golden tests/goldens/lstm_bf16_loss.npz
+    (test_lstm_bf16_loss_golden_matches_live_jax recomputes it). Master
+    weights stay float32."""
+    _, model, batch, inputs = _bf16_inputs()
+    ref = float(goldens.load("lstm_bf16_loss", inputs)["loss"])
+    assert abs(_port_bf16_loss(model, batch) - ref) <= 1e-2 * abs(ref)
+
+
+@pytest.mark.slow
+def test_lstm_bf16_loss_golden_matches_live_jax():
+    shapes, model, batch, inputs = _bf16_inputs()
+    live = _jax_bf16_loss(shapes, model, batch)
+    assert abs(float(goldens.load("lstm_bf16_loss", inputs)["loss"]) - live) <= 1e-2 * abs(live)
+    assert abs(_port_bf16_loss(model, batch) - live) <= 1e-2 * abs(live)
+
+
+def _golden_step(case):
+    shapes, model, batch, inputs = _step_inputs(case)
+    return inputs, _jax_step(case, shapes, model, batch)
+
+
+def _golden_bf16():
+    shapes, model, batch, inputs = _bf16_inputs()
+    return inputs, dict(loss=np.asarray(_jax_bf16_loss(shapes, model, batch)))
+
+
+GOLDENS = {**{f"lstm_train_step_{case}": (lambda case=case: _golden_step(case)) for case in STEP_CASES},
+           "lstm_bf16_loss": _golden_bf16}
 
 
 TRAIN_ARGS = ["--synthetic-dataset", "--lstm", "--fscale", "mel", "--fbins", "12", "--fmin", "200.0",

@@ -18,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_utils import DEVICE, MEL12, TINY_ARGS, TINY_LEN, noise
+from torch_port_utils import DEVICE, MEL12, TINY_ARGS, TINY_LEN, noise, one_thread_env
 
 from xumx_slicq_tpu.separator import Separator as JaxSeparator
 from xumx_slicq_torch import audio
@@ -144,7 +144,7 @@ def test_port_never_imports_jax():
     and bench_torch.py import without jax, flax, msgpack, yaml, the JAX
     package or cadenza; only the Triton module needs triton (absent here)."""
     res = subprocess.run([sys.executable, "-c", _ISOLATION, str(ROOT)], capture_output=True, text=True,
-                         timeout=120, cwd=ROOT)
+                         timeout=120, cwd=ROOT, env=one_thread_env())
     assert res.returncode == 0, res.stderr
     out = json.loads(res.stdout.strip().splitlines()[-1])
     assert out["bad"] == []

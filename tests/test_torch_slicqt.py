@@ -30,6 +30,12 @@ def pair():
 
 
 @pytest.fixture(scope="module")
+def jax_backward(pair):
+    """The JAX package's synthesis, jitted once for the module's cases."""
+    return jax.jit(pair[0].backward, static_argnums=1)
+
+
+@pytest.fixture(scope="module")
 def jax_blocks(pair):
     j, _ = pair
     x = noise(0, (2, 2, L))
@@ -51,13 +57,13 @@ def _random_blocks(t, seed, B=2, C=2, length=L):
 
 
 @pytest.mark.parametrize("source", ["jax_forward", "random"])
-def test_backward_matches_jax(pair, jax_blocks, source):
+def test_backward_matches_jax(pair, jax_blocks, jax_backward, source):
     """Synthesis from the JAX package's own coefficients, and from random
     (non-Hermitian) blocks, where the port's half spectrum + irfft must
     still agree with the JAX package's fused synthesis."""
-    j, t = pair
+    _, t = pair
     blocks = jax_blocks[1] if source == "jax_forward" else _random_blocks(t, 10)
-    ref = np.asarray(jax.jit(j.backward, static_argnums=1)([jnp.asarray(b) for b in blocks], L))
+    ref = np.asarray(jax_backward([jnp.asarray(b) for b in blocks], L))
     out = t.backward([torch.from_numpy(b) for b in blocks], L)
     assert out.shape == (2, 2, L)
     assert rel_err(out, ref) < REL_TOL

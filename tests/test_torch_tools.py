@@ -19,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_utils import DEVICE, MEL12, noise, port_model_dir
+from torch_port_utils import DEVICE, MEL12, noise, one_thread_env, port_model_dir
 
 from xumx_slicq_torch import data as D
 from xumx_slicq_torch.ops.bsseval import fast_sdr
@@ -493,5 +493,5 @@ def test_package_surface():
     with pytest.raises(AttributeError):
         xumx_slicq_torch.NoSuchThing
     res = subprocess.run([sys.executable, "-m", "xumx_slicq_torch", "--help"], capture_output=True, text=True,
-                         timeout=120, cwd=Path(__file__).resolve().parent.parent)
+                         timeout=120, cwd=Path(__file__).resolve().parent.parent, env=one_thread_env())
     assert res.returncode == 0 and "--input-dir" in res.stdout

@@ -31,6 +31,7 @@ import optax
 import torch
 from scipy.io import wavfile
 
+import torch_goldens as goldens
 from torch_port_utils import DEVICE, MEL12, TINY_LEN, keep_grads, noise, norm_rel
 
 from xumx_slicq_tpu import data as jdata
@@ -62,10 +63,14 @@ def _batch(seed=0):
 @pytest.fixture(scope="module")
 def weights():
     """One set of weights for every step test, made once (the JAX init
-    program takes ~12 s to compile): the JAX package's seeded init, which
-    is the same offline, realtime and with bf16 convs (init_cdae_params
-    reads neither flag), with BatchNorm and whitening moved as training
-    moves them."""
+    program takes ~12 s to compile)."""
+    return _jax_weights()
+
+
+def _jax_weights():
+    """The JAX package's seeded init, which is the same offline, realtime
+    and with bf16 convs (init_cdae_params reads neither flag), with
+    BatchNorm and whitening moved as training moves them."""
     shapes = JaxSliCQT(**MEL12).block_shapes(BATCH, 2, TINY_LEN)
     params, stats = JaxUnmix(shapes).init(jax.random.PRNGKey(1))
     rng = np.random.default_rng(1)
@@ -129,11 +134,14 @@ def test_train_step_matches_jax(weights, realtime, sdr_mcoef):
             assert float((a - before[name]).abs().max()) <= LR * (1.01 + WD * float(a.abs().max())), name
 
 
-def test_bf16_train_step_matches_jax_amp(weights):
-    """--bf16: the port's step with bf16 conv operands against the JAX
-    package's amp=True loss (the train step's loss_fn, training.py:245-260,
-    evaluated forward only). Master weights stay float32."""
-    batch = _batch()
+def _bf16_fingerprint(weights, batch) -> str:
+    _, params, stats = weights
+    return goldens.fingerprint(*jax.tree.leaves(params), *jax.tree.leaves(stats), batch)
+
+
+def _jax_bf16_loss(weights, batch) -> float:
+    """The JAX package's amp=True loss (the train step's loss_fn,
+    training.py:245-260, evaluated forward only)."""
     j = JaxSliCQT(**MEL12)
     shapes, params, stats = weights
     ju = JaxUnmix(shapes, amp=True)
@@ -146,10 +154,41 @@ def test_bf16_train_step_matches_jax_amp(weights):
         Y_tgt = [c[:, 1:].swapaxes(0, 1) for c in blocks5]
         return jloss.complex_mse_loss(Y_est, Y_tgt) + jloss.mask_sum_loss(Y_masks)
 
-    ref = float(jax_loss(params, stats, jnp.asarray(batch)))
+    return float(jax_loss(params, stats, jnp.asarray(batch)))
+
+
+def _port_bf16_loss(weights, batch) -> float:
+    shapes, params, stats = weights
     out = _port_step(shapes, params_from_jax(params, stats), batch, amp=True)
-    assert abs(out["loss"] - ref) <= 1e-2 * abs(ref)
     assert all(p.dtype == torch.float32 for p in out["after"].values() if p.is_floating_point())
+    return out["loss"]
+
+
+def test_bf16_train_step_matches_jax_amp(weights):
+    """--bf16: the port's step with bf16 conv operands against the JAX
+    package's amp=True loss, the golden tests/goldens/cdae_bf16_loss.npz
+    (test_bf16_loss_golden_matches_live_jax recomputes it). Master weights
+    stay float32."""
+    batch = _batch()
+    ref = float(goldens.load("cdae_bf16_loss", _bf16_fingerprint(weights, batch))["loss"])
+    assert abs(_port_bf16_loss(weights, batch) - ref) <= 1e-2 * abs(ref)
+
+
+@pytest.mark.slow
+def test_bf16_loss_golden_matches_live_jax(weights):
+    batch = _batch()
+    live = _jax_bf16_loss(weights, batch)
+    ref = float(goldens.load("cdae_bf16_loss", _bf16_fingerprint(weights, batch))["loss"])
+    assert abs(ref - live) <= 1e-2 * abs(live)
+    assert abs(_port_bf16_loss(weights, batch) - live) <= 1e-2 * abs(live)
+
+
+def _golden_bf16():
+    weights, batch = _jax_weights(), _batch()
+    return _bf16_fingerprint(weights, batch), dict(loss=np.asarray(_jax_bf16_loss(weights, batch)))
+
+
+GOLDENS = {"cdae_bf16_loss": _golden_bf16}
 
 
 def test_early_stopping():

@@ -39,6 +39,15 @@ def port_model_dir(d, lstm: bool = False, realtime: bool = False, seed: int = 3)
     return d
 
 
+def one_thread_env() -> dict:
+    """The environment for a child process a test starts: this one's, with
+    OpenMP and the BLAS libraries on one thread, as the test workers share
+    the machine's cores."""
+    import os
+
+    return dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1", OPENBLAS_NUM_THREADS="1")
+
+
 def noise(seed: int, shape, scale: float = 1.0) -> np.ndarray:
     return (np.random.default_rng(seed).standard_normal(shape) * scale).astype(np.float32)
 

@@ -11,7 +11,8 @@ inverse sliCQT) with the weights inside, one artifact per chunk length
       chunk_<len>.pt2    one ExportedProgram per chunk length
 
 The hand-written kernels are opaque registered ops (kernels/ops.py): the
-exported graph holds one `xumx_slicq::synth_assembly` node (K1), one
+exported graph holds one `xumx_slicq::analysis_gather` node (K3), one
+`xumx_slicq::synth_assembly` node (K1), one
 `xumx_slicq::wiener_em_grouped` node for the offline model (K2) and three
 `xumx_slicq::lstm_recurrence` nodes for the LSTM (K5), never their plain
 versions unrolled into ATen ops. An artifact exported on the card runs the
@@ -31,6 +32,7 @@ from torch import nn
 
 from .device import resolve_device
 from .kernels import ops as kernel_ops
+from .kernels.analysis_gather import analysis_gather
 from .kernels.lstm_recurrence import lstm_recurrence
 from .kernels.synth_assembly import synth_assembly
 from .kernels.wiener_em import wiener_em
@@ -68,11 +70,12 @@ def build_chunk_fn(slicqt, model, chunk_len: int, prepared=None) -> ChunkPipelin
 
 def expected_ops(model) -> dict:
     """The op nodes an exported chunk pipeline of `model` must hold."""
-    return dict(synth_assembly=1, wiener_em_grouped=0 if model.realtime else 1,
+    return dict(synth_assembly=1, analysis_gather=1, wiener_em_grouped=0 if model.realtime else 1,
                 lstm_recurrence=3 if model.lstm else 0, lstm_recurrence_cell=0)
 
 
-_COUNTERS = dict(synth_assembly=synth_assembly, wiener_em_grouped=wiener_em, lstm_recurrence=lstm_recurrence)
+_COUNTERS = dict(synth_assembly=synth_assembly, analysis_gather=analysis_gather, wiener_em_grouped=wiener_em,
+                 lstm_recurrence=lstm_recurrence)
 
 
 def export_chunk(fn: ChunkPipeline, batch: int, device) -> torch.export.ExportedProgram:

@@ -1,4 +1,4 @@
-"""K1, K2 and K5's forwards as registered ops (torch.library.custom_op).
+"""K1, K2, K3 and K5's forwards as registered ops (torch.library.custom_op).
 
 Each op has two device implementations and a fake one:
 
@@ -19,11 +19,12 @@ checkout once this module is imported (`export.ExportedSeparator` does).
 
 The ops take tensors and ints only: the kernels' tables are tensor
 arguments (K1's `SynthTable` fields, K2's work tables, K5's work table),
-which torch.export keeps as constants of the artifact, and the layouts are
-int lists (K2: five ints a bucket, (B, C, F, S, M); K5: hidden sizes,
+which torch.export keeps as constants of the artifact (K3's `AnalysisTable`
+fields), and the layouts are int lists (K2: five ints a bucket, (B, C, F, S, M); K5: hidden sizes,
 lengths, batch and directions).
 
     xumx_slicq::synth_assembly(flat, idx, w_re, w_im, unrot) -> half spectrum
+    xumx_slicq::analysis_gather(X, entries, w) -> packed weighted coefficients
     xumx_slicq::wiener_em_grouped(x, v, buckets, items1, items2, shapes)
         -> (estimates, pass-1 partial sums, max slots)
     xumx_slicq::lstm_recurrence(xp, w, items, smem, hidden, frames, batch, dirs) -> h
@@ -38,12 +39,13 @@ from typing import List, Tuple
 import torch
 from torch import Tensor
 
+from . import analysis_gather as _k3
 from . import lstm_recurrence as _k5
 from . import synth_assembly as _k1
 from . import wiener_em as _k2
 
 NAMESPACE = "xumx_slicq"
-OPS = ("synth_assembly", "wiener_em_grouped", "lstm_recurrence", "lstm_recurrence_cell")
+OPS = ("synth_assembly", "analysis_gather", "wiener_em_grouped", "lstm_recurrence", "lstm_recurrence_cell")
 
 
 # -- K1 --------------------------------------------------------------------------
@@ -62,6 +64,24 @@ def _(flat, idx, w_re, w_im, unrot):
 @synth_assembly.register_fake
 def _(flat, idx, w_re, w_im, unrot):
     return flat.new_empty((flat.shape[0], flat.shape[1], idx.shape[0]))
+
+
+# -- K3 --------------------------------------------------------------------------
+
+
+@torch.library.custom_op(f"{NAMESPACE}::analysis_gather", mutates_args=(), device_types="cpu")
+def analysis_gather(X: Tensor, entries: Tensor, w: Tensor) -> Tensor:
+    return _k3.gather_flat_plain(X, entries, w)
+
+
+@analysis_gather.register_kernel("cuda")
+def _(X, entries, w):
+    return _k3.launch(X, entries, w)
+
+
+@analysis_gather.register_fake
+def _(X, entries, w):
+    return X.new_empty((X.shape[0] * X.shape[1] * entries.shape[0],))
 
 
 # -- K2 --------------------------------------------------------------------------

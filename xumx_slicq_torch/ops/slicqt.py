@@ -12,11 +12,13 @@ held as device tensors. The compute differs where the TPU forced a shape:
   bucket spectra (no 128-lane padding, no (n2, h1) remap) with kernel K1
   (kernels/synth_assembly.py), then calls `irfft`.
 
-Analysis: temporal slicing -> rfft over nn -> per bucket a gather from the
-half spectrum (positions past nh read the Hermitian mirror, as
-`_build_forward_half` does with nh in place of Lh) -> the parity-indexed
-fused weight -> ifft over M, copied into the bucket's view of one packed
-buffer (ops/packed.BucketLayout) that Wiener-EM reads whole.
+Analysis: temporal slicing -> rfft over nn -> K3 (kernels/analysis_gather.py):
+for every bucket at once, a gather from the half spectrum (positions past
+nh read the Hermitian mirror, as `_build_forward_half` does with nh in
+place of Lh) and the parity-indexed fused weight, written in each bucket's
+(B, C, F, S, M) order into one packed buffer -> ifft over M of each bucket
+view into the output's view of another packed buffer
+(ops/packed.BucketLayout), which Wiener-EM reads whole.
 Synthesis: fft over M -> arrange ramp, written into the flat raw buffer ->
 K1 (weights, mirror conjugation, un-rotation) -> irfft -> overlap-add.
 Transform math stays in full fp32 (cuFFT has no TF32 path; nothing here
@@ -36,6 +38,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..kernels.analysis_gather import analysis_gather, build_table
 from ..kernels.synth_assembly import SynthTable, synth_assembly
 from .filterbank import FilterbankPlan, design_filterbank, hannwin
 from .fscale import make_scale
@@ -270,10 +273,13 @@ class SliCQT:
     def _to_device(self):
         dev = self.device
         self._window = torch.from_numpy(_make_slice_window(self.sllen, self.trlen)).to(dev)
-        self._fwd = [
+        # per bucket (src, sgn, fwd_w): the tables of K3's plain version
+        self.forward_tables = [
             (torch.from_numpy(src).to(dev), torch.from_numpy(sgn).to(dev), torch.from_numpy(b.fwd_w).to(dev))
             for b, (src, sgn) in zip(self.buckets, self._fwd_src)
         ]
+        self.analysis_table = build_table([src for src, _ in self._fwd_src], [sgn for _, sgn in self._fwd_src],
+                                          [b.fwd_w for b in self.buckets], self.nh, dev)
         self._inv_ramp = [torch.from_numpy(b.inv_ramp).to(dev) for b in self.buckets]
         self.synth_table = SynthTable(
             unrot=torch.from_numpy(self._unrot).to(dev),
@@ -318,21 +324,24 @@ class SliCQT:
         """The packed layout of the blocks for (B, C, S)."""
         return BucketLayout([(batch, channels, b.f_count, n_slices, b.M) for b in self.buckets])
 
+    def half_spectrum(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, C, L) -> the rfft half spectrum of every slice, (B, C, S, nh)
+        complex64: K3's input."""
+        return torch.fft.rfft(self._slice_temporal(x), dim=-1)
+
     def forward(self, x: torch.Tensor) -> PackedBlocks:
         """Analysis: (B, C, L) float32 -> list of (B, C, F_b, S, M_b) complex64.
 
         The blocks are contiguous views of one packed buffer (the list's
         `packed`, at the offsets of its `layout`), which Wiener-EM reads as
         one tensor."""
-        X = torch.fft.rfft(self._slice_temporal(x), dim=-1)            # (B,C,S,nh)
+        X = self.half_spectrum(x)
         B, C, S, _ = X.shape
-        parity = self._parity(S)
         layout = self.layout(B, C, S)
+        weighted = PackedBlocks(analysis_gather(X, self.analysis_table), layout)   # K3
         out = PackedBlocks(torch.empty(layout.size, dtype=torch.complex64, device=self.device), layout)
-        for (src, sgn, fwd_w), dst in zip(self._fwd, out):
-            t = X[..., src]                                             # (B,C,S,F,M)
-            t = torch.complex(t.real, t.imag * sgn)                     # Hermitian mirror
-            dst.copy_(torch.fft.ifft(t * fwd_w[parity], dim=-1).movedim(3, 2))   # (B,C,F,S,M)
+        for t, dst in zip(weighted, out):
+            torch.fft.ifft(t, dim=-1, out=dst)                          # (B,C,F,S,M)
         return out
 
     # -- synthesis -------------------------------------------------------------
