@@ -3,16 +3,19 @@
 
     python3 chip_smoke.py
 
-Builds the port's kernels from this checkout (K1, K3 and K5 with nvcc
+Builds the port's kernels from this checkout (K1, K3, K4 and K5 with nvcc
 into build/xumx_slicq_torch/, K2 with Triton), holds each against its plain
 PyTorch version at the shapes of the main path (K2 as one grouped call
 over all 70 buckets of the packed layout; K3, the analysis gather and
 weight of all 70 buckets in one launch, also at the train step's two
-layouts), checks the canonical
+layouts; K4, the folded CDAE of all 70 buckets in four launches, offline
+and realtime, each launch timed beside its bound and cuDNN), checks the canonical
 bark-262 transform round trip on the card, runs the full-width offline
 Separator on the card and on the CPU and compares the stems, demixes a
 seeded 236 s stereo track (the MUSDB18-HQ test-set average length) with
-launch counts and timings, and runs the realtime Separator once. Then the
+launch counts and timings (K4 once a layer; no cuDNN conv kernel in its
+profile), and runs the realtime Separator on the card against the CPU and
+on the 236 s track. Then the
 LSTM variant: K5 (CUDA C++, the LSTM recurrence) against its plain version
 over all 70 buckets offline and realtime, at 2 s and at the main path's
 layout, timed there beside cuDNN's LSTM and per hidden size (ns a step of
@@ -66,7 +69,7 @@ exits non-zero.
 
     python3 chip_smoke.py --phases export_cdae,slicqfinder
 
-runs only the named phases after the build (k3_analysis_gather,
+runs only the named phases after the build (k3_analysis_gather, k4_cdae,
 export_cdae, export_lstm, slicqfinder, tuning, profile_stats, separator_devices, msgpack_weights,
 entry, mesh, cadenza, separator_devices_lstm, lstm_forward_device_waves,
 cdae_forward_device_waves, silent_train_step; and on a machine with
@@ -97,6 +100,12 @@ K1_TOL = 1e-5                   # max |kernel - plain| / max |plain|: same sums,
 K3_TOL = 1e-6                   # K3, per bucket, max |kernel - plain| / max |plain|: one complex product an output
 K2_TOL = 1e-4                   # same, per bucket: fp32 division/sqrt rounding through the 2x2 inverse
 ROUNDTRIP_TOL = 1e-5            # transform round trip on unit-variance noise
+# K4 against its plain version (cuDNN convs, TF32 off) on the same packed inputs, max |mask_kernel - mask_plain|
+# with masks in (0, 1): fp32 sums of up to 1,008 products a layer in another order, through four layers
+K4_TOL = 1e-5
+# names of cuDNN's conv kernels and their layout helpers in a profile (the CDAE before K4: PERF.md section 5)
+CUDNN_CONV_MARKERS = ("cudnn", "genericTranspose", "dgrad", "wgrad", "fprop", "scaleTensor", "implicit_convolve",
+                      "convolve_", "conv2d")
 STEM_TOL = 1e-4                 # |cuda - cpu| stems, fp32 both sides with TF32 off, 0.1-RMS input
 K1B_TOL = 1e-5                  # K1 backward: the same products and sums as its plain version
 # K2 backward, max |kernel - plain| over each bucket's largest gradient: fp32 division through the
@@ -259,7 +268,11 @@ def breakdown(sep, slicqt, track, batch: int, chunk: int, name: str = "track_bre
           device_busy_share=busy_ms / (wall * 1e3) if busy_ms else "not measured",
           kernel_launches=agg["device_events"], profile_stage_device_ms=agg["stages_device_ms"],
           k2_kernels=[[k[:60], c, ms] for k, (c, ms) in agg["kernels"].items() if "_em_pass" in k],
+          k4_kernels=[[k[:60], c, ms] for k, (c, ms) in agg["kernels"].items() if "cdae_layer" in k],
           top_kernels=[[k[:60], c, ms] for k, c, ms in top(agg["kernels"], 10)])
+    if model == "cdae":   # the folded CDAE runs as K4: no cuDNN conv, layout transpose or scaling kernel
+        conv = [k for k, _, _ in top(agg["kernels"], 10) if any(m in k for m in CUDNN_CONV_MARKERS)]
+        check(not conv, f"{name}: cuDNN conv kernels among the demix's top kernels: {conv}")
     return prof, agg
 
 
@@ -359,6 +372,183 @@ def k3_analysis_gather(slicqt, g, kernels, batch: int, chunk: int):
         name="analysis_gather", route="cuda", source="xumx_slicq_torch/csrc/analysis_gather.cu",
         replaces="xumx_slicq_tpu/ops/slicqt.py:678", max_abs_err=max(r["max_abs_err"] for r in res.values()),
         ms=inf["ms"], plain_ms=inf["plain_ms"], bound_ms=inf["bound_ms"], bound_by=inf["bound_by"], library_ms=None)
+
+
+K4_LAYERS = ("enc1", "enc2", "dec1", "dec2")
+
+
+def k4_counters() -> dict:
+    """K4's launch counters, one a layer (`cdae_conv.counters`), by kernel name."""
+    from xumx_slicq_torch.kernels.cdae_conv import counters
+
+    return {f"cdae_{name}": c for name, c in counters.items()}
+
+
+def perturbed(model, seed: int = 1):
+    """`model`, a CDAE Unmix, with each bucket's BatchNorm statistics and
+    affines and its whitening drawn off their defaults from `seed`: at a
+    fresh model's, the folded biases are 0 and the whitening is the
+    identity, so a kernel that misread them would pass. The same draws on
+    any device, so a card's model and a CPU's stay equal."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for blk in model.blocks:
+            for bn in (blk.bn1, blk.bn2, blk.bn3):
+                for t, lo, hi in ((bn.running_mean, -0.1, 0.1), (bn.running_var, 0.6, 1.6),
+                                  (bn.weight, 0.8, 1.2), (bn.bias, -0.1, 0.1)):
+                    t.copy_(torch.empty(t.shape).uniform_(lo, hi, generator=g))
+            blk.input_mean.copy_(torch.empty(blk.input_mean.shape).uniform_(-0.2, 0.0, generator=g))
+            blk.input_scale.copy_(torch.empty(blk.input_scale.shape).uniform_(0.5, 2.0, generator=g))
+    return model
+
+
+def k4_work(layout, arch, realtime: bool) -> dict:
+    """Per K4 layer, (MACs, bytes) of this layout: MACs each input activation
+    times each kernel weight it meets (no padding, no border zeros), bytes
+    each input read once (the complex mixture 8 B a value) and each output
+    written once (dec2 writes masks and magnitudes), weights included."""
+    from xumx_slicq_torch.kernels.cdae_conv import _offsets
+
+    n, h1, h2, tf2 = arch.targets, arch.h1, arch.h2, arch.tf2
+    work = {name: [0, 0] for name in K4_LAYERS}
+    wbytes = {name: 0 for name in K4_LAYERS}
+    for o in _offsets(arch):
+        for name, (_, R, _, N, _) in o["layers"].items():
+            wbytes[name] += 4 * n * R * N
+    for (B, C, F, S, T), (_, _, _, fphi) in zip(layout.shapes, arch.buckets):
+        F1, K1 = F - fphi + 1, 2 * S if realtime else 2 * S - 1
+        F2, K2 = F1 - fphi + 1, K1 - tf2 + 1
+        a0, a1, a2 = B * C * F * S * T, B * n * h1 * F1 * K1, B * n * h2 * F2 * K2
+        for name, macs, nbytes in (("enc1", a1 * C * fphi * T, 8 * a0 + 4 * a1),
+                                   ("enc2", a2 * h1 * fphi * tf2, 4 * a1 + 4 * a2),
+                                   ("dec1", a2 * h1 * fphi * tf2, 4 * a2 + 4 * a1),
+                                   ("dec2", a1 * C * fphi * T, 4 * a1 + 8 * a0 + 2 * 4 * n * a0)):
+            work[name][0] += macs
+            work[name][1] += nbytes
+    return {k: (m, b + wbytes[k]) for k, (m, b) in work.items()}
+
+
+def plain_layers_ms(X, weights, layout, realtime: bool) -> dict:
+    """Per K4 layer, (plain ms, library ms) over every bucket at this layout,
+    device time: the plain version's layer (`cdae_conv.plain_layers`, enc1
+    with |X|, dec2 with mask x |X|; cuDNN with TF32 off), and cuDNN's
+    conv2d / conv_transpose2d alone (with bias): the library's way to
+    compute the layer. Each layer's input comes from the plain version."""
+    import torch.nn.functional as Fn
+
+    from xumx_slicq_torch.kernels.cdae_conv import plain_layers, unpack_weights
+
+    n = weights.arch.targets
+    plain = {name: [] for name in K4_LAYERS}
+    library = {name: [] for name in K4_LAYERS}
+    params = unpack_weights(weights.w, weights.arch)
+    with torch.inference_mode():
+        for xb, p, (B, C, F, S, T) in zip(layout.split(X), params, layout.shapes):
+            hop = T // 2
+            layers = dict(zip(K4_LAYERS, plain_layers(p, realtime, n, S, T)))
+            x = ((xb.abs() + p["input_mean"][None, None, :, None, None])      # enc1's conv input
+                 * p["input_scale"][None, None, :, None, None]).reshape(B, C, F, S * T)
+            x = Fn.pad(x, (T - 1, 0)) if realtime else x
+            h1 = layers["enc1"](xb.abs())
+            h2 = layers["enc2"](h1)
+            h3 = layers["dec1"](h2)
+            convs = {
+                "enc1": lambda x, p=p, hop=hop: Fn.conv2d(x, p["enc1_w"], p["enc1_b"], stride=(1, hop)),
+                "enc2": lambda h, p=p: Fn.conv2d(h, p["enc2_w"], p["enc2_b"], groups=n),
+                "dec1": lambda h, p=p: Fn.conv_transpose2d(h, p["dec1_w"], p["dec1_b"], groups=n),
+                "dec2": lambda h, p=p, hop=hop: Fn.conv_transpose2d(h, p["dec2_w"], p["dec2_b"], stride=(1, hop),
+                                                                    groups=n),
+            }
+            for name, h in (("enc1", x), ("enc2", h1), ("dec1", h2), ("dec2", h3)):
+                library[name].append(lambda f=convs[name], h=h: f(h))
+            plain["enc1"].append(lambda f=layers["enc1"], xb=xb: f(xb.abs()))
+            plain["enc2"].append(lambda f=layers["enc2"], h=h1: f(h))
+            plain["dec1"].append(lambda f=layers["dec1"], h=h2: f(h))
+            plain["dec2"].append(lambda f=layers["dec2"], h=h3, xb=xb: f(h) * xb.abs()[None])
+        out = {name: (cuda_ms(lambda fs=plain[name]: [f() for f in fs], reps=2, warm=1),
+                      cuda_ms(lambda fs=library[name]: [f() for f in fs], reps=2, warm=1)) for name in K4_LAYERS}
+    del plain, library
+    torch.cuda.empty_cache()
+    return out
+
+
+def k4_cdae(slicqt, g, kernels, batch: int, chunk: int):
+    """K4 against its plain version (the per-bucket module code, cuDNN with
+    TF32 off) at the inference layout (a chunk batch of `batch` default
+    chunks from SliCQT.forward of 0.1-RMS noise), offline and realtime: the
+    masks' and magnitudes' errors, each launch's ms (CUDA events around the
+    four launches) against its bound, and the plain version's and cuDNN's ms,
+    whole and per layer over the buckets. BatchNorm statistics and whitening
+    are drawn off their defaults (`perturbed`)."""
+    from xumx_slicq_torch.kernels import cdae_conv
+    from xumx_slicq_torch.models import Unmix
+
+    dev = slicqt.device
+    shapes = slicqt.block_shapes(1, 2, 2 * 44100)
+    a = torch.randn((batch, 2, chunk), generator=g, device=dev) * 0.1
+    with torch.inference_mode():
+        X = slicqt.forward(a)
+    layout = X.layout
+    res = {}
+    for realtime in (False, True):
+        name = "realtime" if realtime else "offline"
+        model = perturbed(Unmix(shapes, realtime=realtime, seed=0, device=dev))
+        weights = model.inference_weights()
+        plan, items, rtab, sizes = cdae_conv._device_tables(layout, weights.arch, realtime, dev)
+        with torch.inference_mode():
+            before = {k: c.launches for k, c in cdae_conv.counters.items()}
+            mags, masks = cdae_conv.cdae_folded(X.packed, weights, layout, realtime)
+            torch.cuda.synchronize()
+            per_call = {k: c.launches - before[k] for k, c in cdae_conv.counters.items()}
+            ref_mags, ref_masks = cdae_conv.cdae_folded_plain(X.packed, weights.w, layout, weights.arch, realtime)
+            torch.cuda.synchronize()
+            err = float((masks - ref_masks).abs().max())
+            mag_err = float((mags - ref_mags).abs().max())
+            mag_rel = mag_err / float(ref_mags.abs().max())
+            finite = bool(torch.isfinite(masks).all() and torch.isfinite(mags).all())
+            del mags, masks, ref_mags, ref_masks
+            events = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+            per_layer = {k: [] for k in K4_LAYERS}
+            total = []
+            for _ in range(6):
+                cdae_conv.launch(X.packed, weights.w, plan, items, rtab, layout, weights.arch.targets, sizes, events)
+                torch.cuda.synchronize()
+                for i, k in enumerate(K4_LAYERS):
+                    per_layer[k].append(events[i].elapsed_time(events[i + 1]))
+                total.append(events[0].elapsed_time(events[4]))
+            ms = cuda_ms(lambda: cdae_conv.cdae_folded(X.packed, weights, layout, realtime), reps=10)
+            plain_ms = cuda_ms(lambda: cdae_conv.cdae_folded_plain(X.packed, weights.w, layout, weights.arch,
+                                                                   realtime), reps=2, warm=1)
+        per_layer_plain = plain_layers_ms(X.packed, weights, layout, realtime)
+        layers = {}
+        for k, (macs, nbytes) in k4_work(layout, weights.arch, realtime).items():
+            b_ms, b_by = bound(nbytes, 2 * macs)
+            k_ms = float(np.median(per_layer[k][1:]))
+            layers[k] = dict(items=sizes[K4_LAYERS.index(k)], gmac=macs / 1e9, gbytes=nbytes / 1e9,
+                             bound_ms=b_ms, bound_by=b_by, ms=k_ms, share_of_bound=b_ms / k_ms,
+                             plain_ms=per_layer_plain[k][0], library_ms=per_layer_plain[k][1], runs_ms=per_layer[k])
+        res[name] = dict(launches_per_call=per_call, max_abs_err=err, mags_max_abs_err=mag_err,
+                         mags_rel_err=mag_rel, finite=finite, ms=ms, four_launches_ms=float(np.median(total[1:])),
+                         plain_ms=plain_ms, library_ms=sum(v[1] for v in per_layer_plain.values()),
+                         bound_ms=sum(v["bound_ms"] for v in layers.values()), layers=layers,
+                         bound_arithmetic=f"bound = max(bytes / {HBM_BYTES_PER_S:.3g} B/s, 2 MACs / "
+                                          f"{FP32_FLOPS:.3g} FLOP/s) a layer, summed")
+        check(finite, f"K4 {name}: non-finite masks or magnitudes")
+        check(per_call == dict.fromkeys(K4_LAYERS, 1), f"K4 {name}: one call launched {per_call}")
+        check(err <= K4_TOL, f"K4 {name} disagrees with its plain version: masks max abs err {err} > {K4_TOL}")
+        check(mag_rel <= K4_TOL, f"K4 {name}: magnitudes rel err {mag_rel} > {K4_TOL}")
+        del model, weights
+        torch.cuda.empty_cache()
+    phase("k4_cdae", buckets=len(layout.shapes), batch=batch, slices=layout.shapes[0][3], tol=K4_TOL, **res)
+    off = res["offline"]
+    for k in K4_LAYERS:
+        lay = off["layers"][k]
+        kernels[f"cdae_{k}"] = dict(
+            name=f"cdae_{k}", route="cuda", source="xumx_slicq_torch/csrc/cdae_conv.cu",
+            replaces={"enc1": "xumx_slicq_tpu/models/cdae.py:150", "enc2": "xumx_slicq_tpu/models/cdae.py:227",
+                      "dec1": "xumx_slicq_tpu/models/cdae.py:231", "dec2": "xumx_slicq_tpu/models/cdae.py:112"}[k],
+            max_abs_err=max(res[m]["max_abs_err"] for m in res), ms=lay["ms"], plain_ms=lay["plain_ms"],
+            bound_ms=lay["bound_ms"], bound_by=lay["bound_by"], library_ms=lay["library_ms"])
 
 
 def k1_backward(slicqt, g, kernels):
@@ -1143,14 +1333,21 @@ def eval_pipeline(dev):
     base = ["--musdb-root", str(root / "musdb"), "--model-path", str(md)]
     res = {}
     for mode in ("host", "bss-on-device", "device-resident"):
+        for c in k4_counters().values():
+            c.launches = 0
         t0 = time.time()
         store = evaluation_main(base + ([] if mode == "host" else [f"--{mode}"]))
         wall = time.time() - t0
         agg = store.agg_frames_tracks_scores()
-        res[mode] = dict(s_per_track=wall / 2, sdr={t: v["SDR"] for t, v in agg.items()}, tracks=len(store.tracks))
+        res[mode] = dict(s_per_track=wall / 2, sdr={t: v["SDR"] for t, v in agg.items()}, tracks=len(store.tracks),
+                         k4_launches={k: c.launches for k, c in k4_counters().items()})
     diff = max(abs(res["host"]["sdr"][t] - res[m]["sdr"][t]) for m in res for t in res["host"]["sdr"])
     phase("eval_pipeline", tracks=2, seconds=30, modes=res, max_sdr_diff_db=diff, tol_db=BSS_TOL_DB)
     check(all(r["tracks"] == 2 for r in res.values()), "eval_pipeline: a mode lost a track")
+    for mode, r in res.items():          # every chunk batch of both tracks through K4's four layers
+        n = r["k4_launches"]["cdae_enc1"]
+        check(n >= 2 and set(r["k4_launches"].values()) == {n}, f"eval_pipeline {mode}: K4 launches "
+              f"{r['k4_launches']}, expected the same count >= 2 for each layer")
     check(diff <= BSS_TOL_DB, f"eval_pipeline: modes disagree on aggregate SDR by {diff} dB")
     shutil.rmtree(root, ignore_errors=True)
 
@@ -1246,7 +1443,8 @@ def export_phase(dev, lstm: bool):
     check(child.returncode == 0, f"{name}: the fresh process failed: {child.stdout[-2000:]} {child.stderr[-3000:]}")
     res = json.loads(out_json.read_text())
     (chunk,) = meta["chunks"]
-    want = dict(synth_assembly=1, analysis_gather=1, wiener_em=3, lstm_recurrence=3 if lstm else 0)
+    want = dict(synth_assembly=1, analysis_gather=1, wiener_em=3, lstm_recurrence=3 if lstm else 0,
+                **dict.fromkeys(k4_counters(), 0 if lstm else 1))
     phase(name, chunk_len=EXPORT_CHUNK, batch=1, export_s=export_s, export_trace_and_save_s=chunk["seconds"],
           artifact_bytes=chunk["bytes"], ops_exported=chunk["ops"], fresh_process_s=child_s, tol=EXPORT_TOL,
           expected_launches_per_call=want, **res)
@@ -1256,6 +1454,7 @@ def export_phase(dev, lstm: bool):
     for call in res["launches_per_call"]:
         check(call == want, f"{name}: an artifact call launched {call}, expected {want}")
     check(res["ops_loaded"] == chunk["ops"], f"{name}: the loaded graph holds {res['ops_loaded']}")
+    check(chunk["ops"]["cdae_folded"] == (0 if lstm else 1), f"{name}: the graph holds {chunk['ops']}")
     shutil.rmtree(root, ignore_errors=True)
 
 
@@ -1277,7 +1476,7 @@ def exported_child(export_dir: str, model_dir: str, out_json: str):
     from xumx_slicq_torch.separator import Separator
 
     counters = dict(synth_assembly=synth_assembly, analysis_gather=analysis_gather, wiener_em=wiener_em,
-                    lstm_recurrence=lstm_recurrence)
+                    lstm_recurrence=lstm_recurrence, **k4_counters())
     dev = torch.device("cuda")
     t0 = time.time()
     es = ExportedSeparator(export_dir)
@@ -1608,21 +1807,25 @@ def separator_devices(sep, track, devices=None):
     many(track)                                                # warm-up: the chunk batch of 2
     torch.cuda.synchronize()
     synth_assembly.launches = wiener_em.launches = 0
+    for c in k4_counters().values():
+        c.launches = 0
     times = []
     for _ in range(3):
         t0 = time.time()
         est = many(track)
         times.append(time.time() - t0)
         if _ == 0:
-            launches = {"synth_assembly": synth_assembly.launches, "wiener_em": wiener_em.launches}
+            launches = {"synth_assembly": synth_assembly.launches, "wiener_em": wiener_em.launches,
+                        **{k: c.launches for k, c in k4_counters().items()}}
     diff = float(np.abs(est - ref).max())
     phase("separator_devices", devices=[str(d) for d in devices], samples=track.shape[-1], chunk_batches=calls,
           max_abs_diff=diff, tol=DEVICES_TOL, s_per_track=times, launches=launches)
     check(est.shape == ref.shape and np.isfinite(est).all(), "separator_devices: bad stems")
     check(diff <= DEVICES_TOL, f"separator_devices: {diff} from the single-device Separator > {DEVICES_TOL}")
-    check(launches["synth_assembly"] == len(calls) and launches["wiener_em"] == 3 * len(calls),
-          f"separator_devices: one demix launched {launches}, expected K1 once and K2 3 times for each of its "
-          f"{len(calls)} chunk batches")
+    check(launches == {"synth_assembly": len(calls), "wiener_em": 3 * len(calls),
+                       **dict.fromkeys(k4_counters(), len(calls))},
+          f"separator_devices: one demix launched {launches}, expected K1 and each K4 layer once and K2 3 times "
+          f"for each of its {len(calls)} chunk batches")
 
 
 def msgpack_weights(dev, clip):
@@ -1666,16 +1869,20 @@ def entry_phase():
 
     fn, args = entry()
     synth_assembly.launches = wiener_em.launches = 0
+    for c in k4_counters().values():
+        c.launches = 0
     t0 = time.time()
     out = fn(*args)
     torch.cuda.synchronize()
     first_s = time.time() - t0
-    launches = {"synth_assembly": synth_assembly.launches, "wiener_em": wiener_em.launches}
+    launches = {"synth_assembly": synth_assembly.launches, "wiener_em": wiener_em.launches,
+                **{k: c.launches for k, c in k4_counters().items()}}
     phase("entry", shape=list(out.shape), device=str(out.device), finite=bool(torch.isfinite(out).all()),
           first_call_s=first_s, launches=launches)
     check(tuple(out.shape) == (4, 1, 2, 88200) and out.is_cuda and bool(torch.isfinite(out).all()),
           "entry: bad output")
-    check(launches["synth_assembly"] == 1 and launches["wiener_em"] == 3, f"entry: launches {launches}")
+    check(launches == {"synth_assembly": 1, "wiener_em": 3, **dict.fromkeys(k4_counters(), 1)},
+          f"entry: launches {launches}")
 
 
 def _cadenza_evaluate(config_overrides: dict, batch: int, batch_size: int):
@@ -1809,7 +2016,7 @@ def _lstm_path_counters():
     from xumx_slicq_torch.kernels.wiener_em import wiener_em
 
     return {"lstm_recurrence": lstm_recurrence, "wiener_em": wiener_em, "synth_assembly": synth_assembly,
-            "analysis_gather": analysis_gather}
+            "analysis_gather": analysis_gather, **k4_counters()}
 
 
 def separator_devices_lstm(sep, track, devices=None):
@@ -1852,7 +2059,7 @@ def separator_devices_lstm(sep, track, devices=None):
         res[name] = dict(samples=x.shape[-1], chunks=nchunks, chunk_batch=nb, global_batch=nb * n_dev,
                          max_abs_diff=diff, s_per_track=times, launches=launches, max_memory_allocated_bytes=peak,
                          expected_launches={"lstm_recurrence": 3, "wiener_em": 3, "synth_assembly": 1,
-                                            "analysis_gather": 1})
+                                            "analysis_gather": 1, **dict.fromkeys(k4_counters(), 0)})
     del many
     wave = torch.randn((WIDEST_WAVE, 2, sep.chunk_size), generator=torch.Generator(sep.device).manual_seed(5),
                        device=sep.device) * 0.1
@@ -1911,9 +2118,10 @@ def forward_device_waves(sep, name: str):
         sep.forward_device(audio)
         torch.cuda.synchronize()
         times.append((time.time() - t0) * 1e3)
-    # two chunk batches (8, then 1): K1 and K3 once, K2 3 times, K5 3 times (the LSTM) each
+    # two chunk batches (8, then 1): K1 and K3 once, K2 3 times, K5 3 times (the LSTM) or K4's four layers once
+    # (the CDAE) each
     expected = {"lstm_recurrence": 6 if sep.model.lstm else 0, "wiener_em": 6, "synth_assembly": 2,
-                "analysis_gather": 2}
+                "analysis_gather": 2, **dict.fromkeys(k4_counters(), 0 if sep.model.lstm else 2)}
     phase(f"{name}_forward_device_waves", samples=n, chunks=FORWARD_DEVICE_CHUNKS, waves=[8, 1], max_abs_diff=diff,
           tol=FORWARD_DEVICE_TOL, ms_per_track=times, max_memory_allocated_bytes=peak, launches=launches)
     check(diff <= FORWARD_DEVICE_TOL, f"{name}_forward_device_waves: {diff} from _chunk_fn on its waves > "
@@ -2005,7 +2213,8 @@ def run_only(names, dev, slicqt):
                      Separator(slicqt, Unmix(slicqt.block_shapes(1, 2, 2 * 44100), seed=0, device=dev), device=dev),
                      "cdae"),
                  k3_analysis_gather=lambda: k3_analysis_gather(slicqt, torch.Generator(device=dev).manual_seed(3), {},
-                                                               4, 2621440))
+                                                               4, 2621440),
+                 k4_cdae=lambda: k4_cdae(slicqt, torch.Generator(device=dev).manual_seed(4), {}, 4, 2621440))
     for name in names:
         table[name]()
     print("partial run (--phases): no result line")
@@ -2104,6 +2313,10 @@ def main(argv=()):
     # -- phase 3b: K3 against its plain version, inference and train layouts ---
     k3_analysis_gather(slicqt, g, kernels, batch, chunk)
 
+    # -- phase 3c: K4 against its plain version, offline and realtime ----------
+    k4_cdae(slicqt, g, kernels, batch, chunk)
+    torch.cuda.empty_cache()
+
     # -- phase 4: K2, one grouped call over all 70 buckets ---------------------
     layout = slicqt.layout(batch, 2, S)
     xk, vk = k2_inputs(layout, g)
@@ -2150,7 +2363,7 @@ def main(argv=()):
 
     # -- phase 6: full-width offline Separator, card against CPU --------------
     shapes = slicqt.block_shapes(1, 2, 2 * 44100)
-    sep = Separator(slicqt, Unmix(shapes, seed=0, device=dev), device=dev)
+    sep = Separator(slicqt, perturbed(Unmix(shapes, seed=0, device=dev)), device=dev)
     n_params = sep.model.num_params()
     check(n_params == 15010446, f"canonical Unmix has {n_params} parameters, expected 15010446")
     clip = (rng.standard_normal((1, 2, 4 * 44100)) * 0.1).astype(np.float32)
@@ -2158,7 +2371,7 @@ def main(argv=()):
     est_gpu = sep(clip)
     gpu_first_s = time.time() - t0
     slicqt_cpu = SliCQT(device="cpu")
-    sep_cpu = Separator(slicqt_cpu, Unmix(slicqt_cpu.block_shapes(1, 2, 2 * 44100), seed=0, device="cpu"),
+    sep_cpu = Separator(slicqt_cpu, perturbed(Unmix(slicqt_cpu.block_shapes(1, 2, 2 * 44100), seed=0, device="cpu")),
                         device="cpu")
     t0 = time.time()
     est_cpu = sep_cpu(clip)
@@ -2178,12 +2391,14 @@ def main(argv=()):
     synth_assembly.launches = 0
     wiener_em.launches = 0
     analysis_gather.launches = 0
+    for c in k4_counters().values():
+        c.launches = 0
     t0 = time.time()
     est = sep(track)                                           # the counted main-path run
     torch.cuda.synchronize()
     times = [time.time() - t0]
     launches = {"synth_assembly": synth_assembly.launches, "wiener_em": wiener_em.launches,
-                "analysis_gather": analysis_gather.launches}
+                "analysis_gather": analysis_gather.launches, **{k: c.launches for k, c in k4_counters().items()}}
     peak = torch.cuda.max_memory_allocated()
     check(est.shape == (4, 1, 2, N_track) and np.isfinite(est).all(), "bad stems for the 236 s track")
     del est   # a caller that keeps the stems makes the next demix page-lock fresh host memory
@@ -2200,15 +2415,41 @@ def main(argv=()):
         kernels[name]["launches"] = n
     check(launches["wiener_em"] <= 3, f"K2 made {launches['wiener_em']} device launches for one chunk batch")
     check(launches["analysis_gather"] == 1, f"K3 made {launches['analysis_gather']} launches for one chunk batch")
+    for k in k4_counters():
+        check(launches[k] == 1, f"K4's {k} made {launches[k]} launches for one chunk batch, expected 1")
     profile_stats_phase(*breakdown(sep, slicqt, track, batch, chunk))
     separator_devices(sep, track)
     forward_device_waves(sep, "cdae")
 
-    # -- phase 8: realtime Separator ------------------------------------------
-    sep_rt = Separator(slicqt, Unmix(shapes, realtime=True, seed=0, device=dev), device=dev)
+    # -- phase 8: realtime Separator, card against CPU, and the 236 s track ----
+    sep_rt = Separator(slicqt, perturbed(Unmix(shapes, realtime=True, seed=0, device=dev)), device=dev)
     est_rt = sep_rt(clip)
-    phase("separator_realtime", shape=list(est_rt.shape), finite=bool(np.isfinite(est_rt).all()))
+    slicqt_cpu = SliCQT(device="cpu")
+    sep_rt_cpu = Separator(slicqt_cpu, perturbed(Unmix(slicqt_cpu.block_shapes(1, 2, 2 * 44100), realtime=True,
+                                                       seed=0, device="cpu")), device="cpu")
+    diff_rt = float(np.abs(est_rt - sep_rt_cpu(clip)).max())
+    del sep_rt_cpu, slicqt_cpu
+    sep_rt(track)                                              # warm-up
+    torch.cuda.synchronize()
+    for c in k4_counters().values():
+        c.launches = 0
+    rt_times = []
+    for i in range(3):
+        t0 = time.time()
+        est = sep_rt(track)
+        torch.cuda.synchronize()
+        rt_times.append(time.time() - t0)
+        if i == 0:
+            rt_launches = {k: c.launches for k, c in k4_counters().items()}
+            rt_finite = bool(np.isfinite(est).all())
+        del est
+    phase("separator_realtime", shape=list(est_rt.shape), finite=bool(np.isfinite(est_rt).all()),
+          max_abs_diff_cuda_vs_cpu=diff_rt, tol=STEM_TOL, track_s_per_track=rt_times,
+          track_s_per_track_median=float(np.median(rt_times)), track_k4_launches=rt_launches)
     check(est_rt.shape == (4, 1, 2, clip.shape[-1]) and np.isfinite(est_rt).all(), "bad realtime stems")
+    check(diff_rt <= STEM_TOL, f"realtime stems on the card differ from the CPU's by {diff_rt} > {STEM_TOL}")
+    check(rt_finite and rt_launches == dict.fromkeys(k4_counters(), 1),
+          f"realtime 236 s track: finite {rt_finite}, K4 launches {rt_launches} (expected 1 each)")
     del sep, sep_rt
 
     # -- phases 9-14: the LSTM variant, K5 --------------------------------------

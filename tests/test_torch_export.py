@@ -56,8 +56,8 @@ def test_cpu_artifact_reloads_and_matches_separator(cdae_export):
 def test_exported_graph_holds_one_node_per_kernel(cdae_export):
     _, out, meta = cdae_export
     counts = kernel_ops.graph_op_counts(ExportedSeparator(out, device="cpu").program(CHUNK).graph)
-    assert counts == dict(synth_assembly=1, analysis_gather=1, wiener_em_grouped=1, lstm_recurrence=0,
-                          lstm_recurrence_cell=0)
+    assert counts == dict(synth_assembly=1, analysis_gather=1, cdae_folded=1, wiener_em_grouped=1,
+                          lstm_recurrence=0, lstm_recurrence_cell=0)
     assert meta["chunks"][0]["ops"] == counts
 
 
@@ -111,8 +111,8 @@ def test_lstm_exports_with_three_recurrence_nodes(tmp_path):
     t0 = time.time()
     meta = export_model(d, tmp_path / "out", chunk_lens=(CHUNK,), device="cpu")
     assert time.time() - t0 < 30
-    assert meta["chunks"][0]["ops"] == dict(synth_assembly=1, analysis_gather=1, wiener_em_grouped=1,
-                                           lstm_recurrence=3, lstm_recurrence_cell=0)
+    assert meta["chunks"][0]["ops"] == dict(synth_assembly=1, analysis_gather=1, cdae_folded=0,
+                                           wiener_em_grouped=1, lstm_recurrence=3, lstm_recurrence_cell=0)
     x = noise(2, (1, 2, CHUNK), 0.1)
     est = ExportedSeparator(tmp_path / "out", device="cpu")(x)
     ref = Separator.load(model_path=d, device=DEVICE, chunk_size=CHUNK)(x)
@@ -124,8 +124,8 @@ def test_realtime_export_has_no_wiener_node(tmp_path):
     input shorter than a chunk at a shorter chunk length."""
     d = port_model_dir(tmp_path / "model", realtime=True)
     meta = export_model(d, tmp_path / "out", chunk_lens=(CHUNK,), device="cpu")
-    assert meta["chunks"][0]["ops"] == dict(synth_assembly=1, analysis_gather=1, wiener_em_grouped=0,
-                                           lstm_recurrence=0, lstm_recurrence_cell=0)
+    assert meta["chunks"][0]["ops"] == dict(synth_assembly=1, analysis_gather=1, cdae_folded=1,
+                                           wiener_em_grouped=0, lstm_recurrence=0, lstm_recurrence_cell=0)
     x = noise(3, (1, 2, CHUNK), 0.1)
     est = ExportedSeparator(tmp_path / "out", device="cpu")(x)
     ref = Separator.load(model_path=d, device=DEVICE, chunk_size=CHUNK)(x)

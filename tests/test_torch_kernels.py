@@ -1,4 +1,4 @@
-"""K1, K2, K3 and K5 against their plain PyTorch versions on the card.
+"""K1, K2, K3, K4 and K5 against their plain PyTorch versions on the card.
 
     python -m pytest -m cuda --noconftest tests/test_torch_kernels.py
 
@@ -7,7 +7,9 @@ and skips without one; the check runs inside a fixture, so every test
 worker collects the same tests. Tolerances are relative to the largest
 plain value (of each bucket, for K2): 1e-5 for K1 and its backward (the
 same sums; only FMA contraction differs), 1e-6 per bucket for K3 (one
-complex product an output), and 1e-4 for K2 and its backward
+complex product an output), 1e-5 for K4's masks (absolute, masks in (0, 1))
+and magnitudes (fp32 sums of up to 1,008 products a layer in another order
+than cuDNN's, TF32 off), and 1e-4 for K2 and its backward
 (fp32 division and square-root rounding through the 2x2 inverse, and row
 sums taken in another order). K5 (the LSTM recurrence) is held to 1e-4
 absolute on h, |h| < 1: accurate expf/tanhf against the CPU's sigmoid and
@@ -20,7 +22,10 @@ same arithmetic in another order through up to 3,212 steps.
 import pytest
 import torch
 
+from torch_port_utils import perturb_cdae
 from xumx_slicq_torch.kernels.analysis_gather import analysis_gather, analysis_gather_plain
+from xumx_slicq_torch.kernels.cdae_conv import cdae_folded, cdae_folded_plain
+from xumx_slicq_torch.kernels.cdae_conv import counters as k4_counters
 from xumx_slicq_torch.kernels.lstm_recurrence import (RecurrenceLayout, lstm_recurrence, lstm_recurrence_backward,
                                                       lstm_recurrence_backward_grouped_plain,
                                                       lstm_recurrence_grouped_plain, lstm_recurrence_with_cell,
@@ -43,6 +48,7 @@ TRAIN_LEN = 2 * 44100                             # the training layout: batch 3
 K5_TOL = 1e-4
 K5B_TOL = 1e-4
 K2B_TOL = 1e-4
+K4_TOL = 1e-5
 
 
 @pytest.fixture
@@ -56,6 +62,15 @@ def cuda():
 
 def _rel(a, b) -> float:
     return float((a - b).abs().max() / b.abs().max())
+
+
+@pytest.fixture
+def no_tf32():
+    """cuDNN in full fp32 (its default is TF32), for the plain versions' convs."""
+    old = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    torch.backends.cudnn.allow_tf32 = old
 
 
 @pytest.mark.parametrize("cfg,S", [(MEL12, 41), ({}, 292)], ids=["mel-12", "bark-262-default-chunk"])
@@ -346,6 +361,53 @@ def test_k5_reverse_direction_keeps_positions(cuda):
 
 
 @pytest.mark.parametrize("realtime", [False, True], ids=["offline", "realtime"])
+@pytest.mark.parametrize("cfg,batch,length", [(MEL12, 2, 2 * 44100), ({}, 4, 2621440)],
+                         ids=["mel-12", "bark-262-default-chunk"])
+def test_k4_matches_plain(cuda, no_tf32, cfg, batch, length, realtime):
+    """K4, the folded CDAE of every bucket in four launches, against its
+    plain version (the per-bucket module code, cuDNN) on the same packed
+    mixture from SliCQT.forward; BatchNorm statistics and whitening
+    perturbed, so that the folded biases and the whitening count."""
+    t = SliCQT(device=cuda, **cfg)
+    model = Unmix(t.block_shapes(1, 2, 2 * 44100), realtime=realtime, seed=2, device=cuda)
+    perturb_cdae(model.blocks, 2)
+    weights = model.inference_weights()
+    a = torch.randn((batch, 2, length), generator=torch.Generator(cuda).manual_seed(3), device=cuda) * 0.1
+    with torch.inference_mode():
+        X = t.forward(a)
+        before = {k: c.launches for k, c in k4_counters.items()}
+        mags, masks = cdae_folded(X.packed, weights, X.layout, realtime)
+        torch.cuda.synchronize()
+        assert {k: c.launches - before[k] for k, c in k4_counters.items()} == dict.fromkeys(before, 1)
+        ref_mags, ref_masks = cdae_folded_plain(X.packed, weights.w, X.layout, weights.arch, realtime)
+    assert masks.shape == ref_masks.shape == (4 * X.layout.size,)
+    assert float((masks - ref_masks).abs().max()) <= K4_TOL
+    assert _rel(mags, ref_mags) <= K4_TOL
+
+
+@pytest.mark.parametrize("realtime", [False, True], ids=["offline", "realtime"])
+def test_cdae_unmix_on_card_matches_cpu(cuda, realtime):
+    """The CDAE at mel-12 on the card through its inference weights (K4)
+    against the same model on the CPU, BatchNorm statistics and whitening
+    perturbed; the card's folded path launches K4 and nothing falls back."""
+    t = SliCQT(device=cuda, **MEL12)
+    x = torch.randn((1, 2, 44100), generator=torch.Generator().manual_seed(17)) * 0.1
+    X = t.forward(x.to(cuda))
+    shapes = [tuple(b.shape) for b in X]
+    model = Unmix(shapes, realtime=realtime, seed=4, device=cuda)
+    cpu = Unmix(shapes, realtime=realtime, seed=4, device="cpu")
+    perturb_cdae(model.blocks, 4)
+    perturb_cdae(cpu.blocks, 4)
+    before = [c.launches for c in k4_counters.values()]
+    with torch.inference_mode():
+        _, masks = model.apply(X, model.inference_weights())
+        torch.cuda.synchronize()
+        assert [c.launches - n for c, n in zip(k4_counters.values(), before)] == [1] * 4
+        _, ref = cpu.apply([b.cpu() for b in X], cpu.inference_weights())
+    assert max(float((a.cpu() - b).abs().max()) for a, b in zip(masks, ref)) <= 1e-5
+
+
+@pytest.mark.parametrize("realtime", [False, True], ids=["offline", "realtime"])
 def test_lstm_unmix_on_card_matches_cpu(cuda, realtime):
     """The LSTM model at mel-12 on the card (three K5 launches, one a layer)
     against the same model on the CPU."""
@@ -499,9 +561,11 @@ def test_k5b_wide_buckets(cuda, H, held, dirs):
 
 
 def _op_cases(cuda):
-    """(name, op, CUDA args, the plain result on the CPU, launch counter) of each registered op."""
+    """(name, op, CUDA args, the plain result on the CPU, launch counters,
+    launches of each counter a call) of each registered op."""
     from xumx_slicq_torch.kernels import ops
     from xumx_slicq_torch.kernels.analysis_gather import gather_flat_plain
+    from xumx_slicq_torch.kernels.cdae_conv import _device_tables as k4_tables
     from xumx_slicq_torch.kernels.lstm_recurrence import _device_plan, layout_args
     from xumx_slicq_torch.kernels.wiener_em import _device_tables, layout_ints
 
@@ -520,41 +584,49 @@ def _op_cases(cuda):
     k5_args = (xp.to(cuda), w.to(cuda), items, smem, *layout_args(rl))
     at = t.analysis_table
     X = torch.randn((8, 41, t.nh), generator=g, dtype=torch.complex64)
+    k4_model = Unmix(t.block_shapes(1, 2, 44100), seed=6, device=cuda)
+    perturb_cdae(k4_model.blocks, 6)
+    weights = k4_model.inference_weights()
+    plan, k4_items, rtab, sizes = k4_tables(layout, weights.arch, False, cuda)
+    k4_args = (x.to(cuda), weights.w, plan, k4_items, rtab, layout_ints(layout), weights.arch.ints(), 0, sizes)
     return [
         ("synth_assembly", ops.synth_assembly, (flat.to(cuda), tab.idx, tab.w_re, tab.w_im, tab.unrot),
-         [synth_assembly_plain(flat, SliCQT(device="cpu", **MEL12).synth_table)], synth_assembly, 1),
+         [synth_assembly_plain(flat, SliCQT(device="cpu", **MEL12).synth_table)], [synth_assembly], 1),
         ("analysis_gather", ops.analysis_gather, (X.to(cuda), at.entries, at.w),
-         [gather_flat_plain(X, at.entries.cpu(), at.w.cpu())], analysis_gather, 1),
+         [gather_flat_plain(X, at.entries.cpu(), at.w.cpu())], [analysis_gather], 1),
         ("wiener_em_grouped", ops.wiener_em_grouped,
          (x.to(cuda), v.to(cuda), tables["buckets"], tables["items1"], tables["items2"], layout_ints(layout)),
-         [wiener_em_grouped_plain(x, v, layout)], wiener_em, K2_LAUNCHES),
+         [wiener_em_grouped_plain(x, v, layout)], [wiener_em], K2_LAUNCHES),
         ("lstm_recurrence", ops.lstm_recurrence, k5_args, [lstm_recurrence_grouped_plain(xp, w, rl)],
-         lstm_recurrence, 1),
+         [lstm_recurrence], 1),
         ("lstm_recurrence_cell", ops.lstm_recurrence_cell, k5_args,
-         list(lstm_recurrence_grouped_plain(xp, w, rl, cell=True)), lstm_recurrence, 1),
+         list(lstm_recurrence_grouped_plain(xp, w, rl, cell=True)), [lstm_recurrence], 1),
+        ("cdae_folded", ops.cdae_folded, k4_args,
+         list(cdae_folded_plain(x, weights.w.cpu(), layout, weights.arch, False)), list(k4_counters.values()), 1),
     ]
 
 
-@pytest.mark.parametrize("which", range(5), ids=["k1", "k3", "k2", "k5", "k5_cell"])
+@pytest.mark.parametrize("which", range(6), ids=["k1", "k3", "k2", "k5", "k5_cell", "k4"])
 def test_registered_op_on_the_card_matches_plain(cuda, which):
     """Each op's CUDA implementation launches its kernel (counted) and agrees
-    with the plain version at the kernel's tolerance (1e-5 for K1, 1e-6 for
-    K3, 1e-4 for K2 per the largest value, 1e-4 absolute for K5's h and c)."""
-    name, op, args, plain, counter, launches = _op_cases(cuda)[which]
-    before = counter.launches
+    with the plain version at the kernel's tolerance (1e-5 for K1 and K4, 1e-6
+    for K3, 1e-4 for K2 per the largest value, 1e-4 absolute for K5's h and c)."""
+    name, op, args, plain, counters, launches = _op_cases(cuda)[which]
+    before = [c.launches for c in counters]
     out = op(*args)
     torch.cuda.synchronize()
-    assert counter.launches == before + launches
+    assert [c.launches - n for c, n in zip(counters, before)] == [launches] * len(counters)
     outs = [out] if isinstance(out, torch.Tensor) else list(out)[: len(plain)]
     for got, ref in zip(outs, plain):
         assert got.device.type == "cuda" and got.shape == ref.shape
         if name.startswith("lstm"):
             assert float((got.cpu() - ref).abs().max()) <= K5_TOL
         else:
-            assert _rel(got.cpu(), ref) <= {"synth_assembly": 1e-5, "analysis_gather": 1e-6}.get(name, 1e-4)
+            assert _rel(got.cpu(), ref) <= {"synth_assembly": 1e-5, "analysis_gather": 1e-6,
+                                            "cdae_folded": K4_TOL}.get(name, 1e-4)
 
 
-@pytest.mark.parametrize("which", range(5), ids=["k1", "k3", "k2", "k5", "k5_cell"])
+@pytest.mark.parametrize("which", range(6), ids=["k1", "k3", "k2", "k5", "k5_cell", "k4"])
 def test_registered_op_opcheck_on_the_card(cuda, which):
     _, op, args, _, _, _ = _op_cases(cuda)[which]
     torch.library.opcheck(op, args)
@@ -563,8 +635,9 @@ def test_registered_op_opcheck_on_the_card(cuda, which):
 @pytest.mark.parametrize("lstm", [False, True], ids=["cdae", "lstm"])
 def test_export_round_trip_on_the_card(cuda, tmp_path, lstm):
     """A mel-12 model exported on the card, saved, loaded again: its graph
-    holds the xumx_slicq op nodes, a call launches K1 and K3 once and K2
-    three times (and K5 three times for the LSTM), and it reproduces the
+    holds the xumx_slicq op nodes, a call launches K1 and K3 once, K2
+    three times and K4's four layers (the CDAE) or K5 three times (the
+    LSTM), and it reproduces the
     Separator's chunk within 1e-5."""
     import json
 
@@ -587,13 +660,13 @@ def test_export_round_trip_on_the_card(cuda, tmp_path, lstm):
     es = ExportedSeparator(tmp_path / "out")
     counts = graph_op_counts(es.program(16384).graph)
     assert counts["synth_assembly"] == 1 and counts["analysis_gather"] == 1 and counts["wiener_em_grouped"] == 1
-    assert counts["lstm_recurrence"] == (3 if lstm else 0)
+    assert counts["lstm_recurrence"] == (3 if lstm else 0) and counts["cdae_folded"] == (0 if lstm else 1)
     x = (np.random.default_rng(0).standard_normal((1, 2, 16384)) * 0.1).astype(np.float32)
-    before = (synth_assembly.launches, analysis_gather.launches, wiener_em.launches, lstm_recurrence.launches)
+    counters = (synth_assembly, analysis_gather, wiener_em, lstm_recurrence, *k4_counters.values())
+    before = [c.launches for c in counters]
     est = es(x)
     torch.cuda.synchronize()
-    moved = (synth_assembly.launches - before[0], analysis_gather.launches - before[1],
-             wiener_em.launches - before[2], lstm_recurrence.launches - before[3])
-    assert moved == (1, 1, K2_LAUNCHES, 3 if lstm else 0)
+    moved = [c.launches - n for c, n in zip(counters, before)]
+    assert moved == [1, 1, K2_LAUNCHES, 3 if lstm else 0] + [0 if lstm else 1] * 4
     ref = Separator.load(model_path=d, device=cuda, chunk_size=16384)(x)
     np.testing.assert_allclose(est, ref, rtol=0, atol=1e-5)

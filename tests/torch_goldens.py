@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 GOLDEN_DIR = Path(__file__).resolve().parent / "goldens"
-MODULES = ("test_torch_training", "test_torch_lstm_training", "test_torch_lstm")   # the modules with GOLDENS
+MODULES = ("test_torch_training", "test_torch_lstm_training", "test_torch_lstm", "test_torch_cdae_conv")   # the modules with GOLDENS
 _INPUTS = "__inputs__"
 
 

@@ -48,6 +48,21 @@ def one_thread_env() -> dict:
     return dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1", OPENBLAS_NUM_THREADS="1")
 
 
+def perturb_cdae(blocks, seed: int):
+    """Each SlicedCDAE's BatchNorm statistics and affines and its whitening
+    off their defaults (the folded biases are 0 and the whitening the
+    identity at a fresh model's), so that folding and whitening matter."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for blk in blocks:
+            for bn in (blk.bn1, blk.bn2, blk.bn3):
+                for t, lo, hi in ((bn.running_mean, -0.1, 0.1), (bn.running_var, 0.6, 1.6),
+                                  (bn.weight, 0.8, 1.2), (bn.bias, -0.1, 0.1)):
+                    t.copy_(torch.empty(t.shape).uniform_(lo, hi, generator=g))
+            blk.input_mean.copy_(torch.empty(blk.input_mean.shape).uniform_(-0.2, 0.0, generator=g))
+            blk.input_scale.copy_(torch.empty(blk.input_scale.shape).uniform_(0.5, 2.0, generator=g))
+
+
 def noise(seed: int, shape, scale: float = 1.0) -> np.ndarray:
     return (np.random.default_rng(seed).standard_normal(shape) * scale).astype(np.float32)
 

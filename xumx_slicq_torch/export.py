@@ -12,7 +12,8 @@ inverse sliCQT) with the weights inside, one artifact per chunk length
 
 The hand-written kernels are opaque registered ops (kernels/ops.py): the
 exported graph holds one `xumx_slicq::analysis_gather` node (K3), one
-`xumx_slicq::synth_assembly` node (K1), one
+`xumx_slicq::synth_assembly` node (K1), one `xumx_slicq::cdae_folded`
+node for the CDAE (K4, four launches), one
 `xumx_slicq::wiener_em_grouped` node for the offline model (K2) and three
 `xumx_slicq::lstm_recurrence` nodes for the LSTM (K5), never their plain
 versions unrolled into ATen ops. An artifact exported on the card runs the
@@ -33,6 +34,7 @@ from torch import nn
 from .device import resolve_device
 from .kernels import ops as kernel_ops
 from .kernels.analysis_gather import analysis_gather
+from .kernels import cdae_conv
 from .kernels.lstm_recurrence import lstm_recurrence
 from .kernels.synth_assembly import synth_assembly
 from .kernels.wiener_em import wiener_em
@@ -70,12 +72,15 @@ def build_chunk_fn(slicqt, model, chunk_len: int, prepared=None) -> ChunkPipelin
 
 def expected_ops(model) -> dict:
     """The op nodes an exported chunk pipeline of `model` must hold."""
-    return dict(synth_assembly=1, analysis_gather=1, wiener_em_grouped=0 if model.realtime else 1,
-                lstm_recurrence=3 if model.lstm else 0, lstm_recurrence_cell=0)
+    return dict(synth_assembly=1, analysis_gather=1, cdae_folded=0 if model.lstm else 1,
+                wiener_em_grouped=0 if model.realtime else 1, lstm_recurrence=3 if model.lstm else 0,
+                lstm_recurrence_cell=0)
 
 
-_COUNTERS = dict(synth_assembly=synth_assembly, analysis_gather=analysis_gather, wiener_em_grouped=wiener_em,
-                 lstm_recurrence=lstm_recurrence)
+# each op's launch counters: one a kernel, one a layer for K4
+_COUNTERS = dict(synth_assembly=(synth_assembly,), analysis_gather=(analysis_gather,),
+                 cdae_folded=tuple(cdae_conv.counters.values()), wiener_em_grouped=(wiener_em,),
+                 lstm_recurrence=(lstm_recurrence,))
 
 
 def export_chunk(fn: ChunkPipeline, batch: int, device) -> torch.export.ExportedProgram:
@@ -90,11 +95,11 @@ def export_chunk(fn: ChunkPipeline, batch: int, device) -> torch.export.Exported
     want = expected_ops(model)
     with torch.no_grad():
         if audio.device.type == "cuda":
-            before = {k: c.launches for k, c in _COUNTERS.items()}
+            before = {k: [c.launches for c in cs] for k, cs in _COUNTERS.items()}
             fn(audio)
             torch.cuda.synchronize(audio.device)
-            for k, c in _COUNTERS.items():
-                if want[k] and c.launches == before[k]:
+            for k, cs in _COUNTERS.items():
+                if want[k] and any(c.launches == n for c, n in zip(cs, before[k])):
                     raise RuntimeError(f"export: kernel {k} did not launch on the card")
         ep = torch.export.export(fn, (audio,), strict=False)
     got = kernel_ops.graph_op_counts(ep.graph)

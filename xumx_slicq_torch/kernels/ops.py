@@ -1,4 +1,4 @@
-"""K1, K2, K3 and K5's forwards as registered ops (torch.library.custom_op).
+"""K1, K2, K3, K4 and K5's forwards as registered ops (torch.library.custom_op).
 
 Each op has two device implementations and a fake one:
 
@@ -18,13 +18,16 @@ one `xumx_slicq::...` node per kernel call, and an artifact that
 checkout once this module is imported (`export.ExportedSeparator` does).
 
 The ops take tensors and ints only: the kernels' tables are tensor
-arguments (K1's `SynthTable` fields, K2's work tables, K5's work table),
+arguments (K1's `SynthTable` fields, K2's, K4's and K5's work tables, K4's
+packed weights),
 which torch.export keeps as constants of the artifact (K3's `AnalysisTable`
-fields), and the layouts are int lists (K2: five ints a bucket, (B, C, F, S, M); K5: hidden sizes,
-lengths, batch and directions).
+fields), and the layouts are int lists (K2 and K4: five ints a bucket, (B, C, F, S, M); K4 also
+its architecture, `CdaeArch.ints`; K5: hidden sizes, lengths, batch and directions).
 
     xumx_slicq::synth_assembly(flat, idx, w_re, w_im, unrot) -> half spectrum
     xumx_slicq::analysis_gather(X, entries, w) -> packed weighted coefficients
+    xumx_slicq::cdae_folded(X, w, plan, items, rtab, shapes, arch, realtime, sizes)
+        -> (packed magnitudes, packed masks)
     xumx_slicq::wiener_em_grouped(x, v, buckets, items1, items2, shapes)
         -> (estimates, pass-1 partial sums, max slots)
     xumx_slicq::lstm_recurrence(xp, w, items, smem, hidden, frames, batch, dirs) -> h
@@ -40,12 +43,14 @@ import torch
 from torch import Tensor
 
 from . import analysis_gather as _k3
+from . import cdae_conv as _k4
 from . import lstm_recurrence as _k5
 from . import synth_assembly as _k1
 from . import wiener_em as _k2
 
 NAMESPACE = "xumx_slicq"
-OPS = ("synth_assembly", "analysis_gather", "wiener_em_grouped", "lstm_recurrence", "lstm_recurrence_cell")
+OPS = ("synth_assembly", "analysis_gather", "cdae_folded", "wiener_em_grouped", "lstm_recurrence",
+       "lstm_recurrence_cell")
 
 
 # -- K1 --------------------------------------------------------------------------
@@ -82,6 +87,26 @@ def _(X, entries, w):
 @analysis_gather.register_fake
 def _(X, entries, w):
     return X.new_empty((X.shape[0] * X.shape[1] * entries.shape[0],))
+
+
+# -- K4 --------------------------------------------------------------------------
+
+
+@torch.library.custom_op(f"{NAMESPACE}::cdae_folded", mutates_args=(), device_types="cpu")
+def cdae_folded(X: Tensor, w: Tensor, plan: Tensor, items: Tensor, rtab: Tensor, shapes: List[int],
+                arch: List[int], realtime: int, sizes: List[int]) -> Tuple[Tensor, Tensor]:
+    return _k4.cdae_folded_plain(X, w, _k2.layout_of_ints(shapes), _k4.CdaeArch.of_ints(arch), bool(realtime))
+
+
+@cdae_folded.register_kernel("cuda")
+def _(X, w, plan, items, rtab, shapes, arch, realtime, sizes):
+    return _k4.launch(X, w, plan, items, rtab, _k2.layout_of_ints(shapes), arch[0], sizes)
+
+
+@cdae_folded.register_fake
+def _(X, w, plan, items, rtab, shapes, arch, realtime, sizes):
+    n = arch[0] * sum(a * b * c * d * e for a, b, c, d, e in zip(*[iter(shapes)] * 5))
+    return w.new_empty((n,)), w.new_empty((n,))
 
 
 # -- K2 --------------------------------------------------------------------------

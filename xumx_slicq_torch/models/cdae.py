@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as Fn
 from torch import nn
 
+from ..kernels.cdae_conv import folded_bucket_plain
 from .nn import amp_op, batch_norm, kaiming_uniform_
 
 NB_TARGETS = 4
@@ -114,41 +115,36 @@ class SlicedCDAE(nn.Module):
         folded=None runs BatchNorm as the module's mode says: in train mode
         on the batch statistics, updating the running buffers; in eval mode
         from the running statistics. A dict from fold_batchnorm runs the
-        folded fast path, which is eval-only (cdae.py:253-255). mesh: in
-        train mode, the statistics are the dp group's (nn.batch_norm)."""
-        if folded is not None and self.training:
-            raise ValueError("BN-folded weights cannot train (fold_batchnorm is eval-only)")
+        folded fast path (kernels/cdae_conv.py's plain version of K4), which
+        is eval-only and fp32 (cdae.py:253-255). mesh: in train mode, the
+        statistics are the dp group's (nn.batch_norm)."""
+        if folded is not None:
+            if self.training:
+                raise ValueError("BN-folded weights cannot train (fold_batchnorm is eval-only)")
+            if self.amp:
+                raise ValueError("BN-folded weights run fp32: an amp model's folded forward is not served")
+            return folded_bucket_plain(x_mag, folded, self.realtime, self.targets)
         B, C, F, S, T = x_mag.shape
         hop = T // 2
-        p = folded if folded is not None else {
-            "enc1_w": self.enc1_w, "enc2_w": self.enc2_w, "dec1_w": self.dec1_w,
-            "dec2_w": self.dec2_w, "dec2_b": self.dec2_b,
-            "input_mean": self.input_mean, "input_scale": self.input_scale,
-        }
 
         def norm(h, bn):
-            if folded is not None:
-                return h
             return batch_norm(h, bn.weight, bn.bias, bn.running_mean, bn.running_var, bn.eps,
                               train=self.training, mesh=mesh)
 
-        def conv(fn, h, w, b, **kw):
+        def conv(fn, h, w, b=None, **kw):
             if not self.amp:
                 return fn(h, w, b, **kw)
             y = amp_op(lambda a, c: fn(a, c, **kw), h, w, amp=True)      # the bias stays fp32
             return y if b is None else y + b[None, :, None, None]
 
-        x = (x_mag + p["input_mean"][None, None, :, None, None]) * p["input_scale"][None, None, :, None, None]
+        x = (x_mag + self.input_mean[None, None, :, None, None]) * self.input_scale[None, None, :, None, None]
         x = x.reshape(B, C, F, S * T)
         if self.realtime:
             x = Fn.pad(x, (T - 1, 0))
-        h = conv(Fn.conv2d, x, p["enc1_w"], p.get("enc1_b"), stride=(1, hop))
-        h = torch.relu(norm(h, self.bn1))
+        h = torch.relu(norm(conv(Fn.conv2d, x, self.enc1_w, stride=(1, hop)), self.bn1))
         n = self.targets
-        h = conv(Fn.conv2d, h, p["enc2_w"], p.get("enc2_b"), groups=n)
-        h = torch.relu(norm(h, self.bn2))
-        h = conv(Fn.conv_transpose2d, h, p["dec1_w"], p.get("dec1_b"), groups=n)
-        h = torch.relu(norm(h, self.bn3))
-        y = conv(Fn.conv_transpose2d, h, p["dec2_w"], p["dec2_b"], stride=(1, hop), groups=n)
+        h = torch.relu(norm(conv(Fn.conv2d, h, self.enc2_w, groups=n), self.bn2))
+        h = torch.relu(norm(conv(Fn.conv_transpose2d, h, self.dec1_w, groups=n), self.bn3))
+        y = conv(Fn.conv_transpose2d, h, self.dec2_w, self.dec2_b, stride=(1, hop), groups=n)
         mask = torch.sigmoid(y[..., : S * T])
         return mask.reshape(B, n, C, F, S, T).transpose(0, 1)

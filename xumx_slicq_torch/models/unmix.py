@@ -5,7 +5,10 @@ lstm=True, one SlicedLSTM) per bucket, the sigmoid masks multiplied into
 the mixture magnitude, then the embedded Wiener-EM (offline) or mix-phase
 (realtime) reconstruction (model.py:263-269). The model is built in eval
 mode, where BatchNorm runs from its running statistics or folded into the
-convs; the trainer calls `.train()`, where BatchNorm runs on batch
+convs; with folded weights (`inference_weights`, the serving path) the
+CDAE of every bucket runs as K4, four launches for all buckets and
+targets that also write the packed magnitudes (kernels/cdae_conv.py);
+the trainer calls `.train()`, where BatchNorm runs on batch
 statistics and updates its running buffers (unmix.py:121-165), and
 gradients flow through K2's backward kernel to the masks. The LSTM
 model's buckets' recurrences run together, one K5 launch per layer, and
@@ -26,7 +29,8 @@ from torch import nn
 
 from ..device import resolve_device
 from ..ops import wiener as wiener_ops
-from ..ops.packed import PackedBlocks, layout_of
+from ..kernels import cdae_conv
+from ..ops.packed import PackedBlocks, layout_of, pack
 from ..parallel.mesh import NB_TARGETS, take_targets
 from .cdae import SlicedCDAE
 from .lstm import SlicedLSTM, lstm_masks, recurrent_weights
@@ -99,32 +103,59 @@ class Unmix(nn.Module):
             raise ValueError("BN folding applies to the CDAE variant only")
         return [blk.fold_batchnorm() for blk in self.blocks]
 
-    def inference_weights(self) -> list:
+    def cdae_arch(self) -> cdae_conv.CdaeArch:
+        """The CDAE's architecture as K4's packed weights record it."""
+        b = self.blocks[0]
+        return cdae_conv.CdaeArch(tuple((k.nb_channels, k.nb_f_bins, k.nb_t_bins, k.fphi) for k in self.blocks),
+                                  b.targets, b.hidden_size_1, b.hidden_size_2, b.time_filter_2)
+
+    def inference_weights(self):
         """What apply(prepared=...) reads on the inference path, built once
-        per model on its device: the CDAE's BatchNorm folded into its convs,
-        or the LSTM's per-layer packed recurrent weights for K5."""
+        per model on its device: the CDAE's BatchNorm folded into its convs
+        and packed for K4 (`cdae_conv.CdaeWeights`), or the LSTM's
+        per-layer packed recurrent weights for K5."""
         with torch.no_grad():
-            return recurrent_weights(self.blocks) if self.lstm else self.fold_batchnorm()
+            if self.lstm:
+                return recurrent_weights(self.blocks)
+            return cdae_conv.pack_weights(self.fold_batchnorm(), self.cdae_arch())
 
     def magnitudes(self, Xcomplex: Sequence[torch.Tensor], prepared: Optional[list] = None,
                    generator: Optional[torch.Generator] = None):
         """The masks and the target magnitude estimates masks * |X|.
         prepared: `inference_weights()`, or None to run from the modules'
-        own weights. generator: the LSTM's dropout draws in train mode
-        (None: no dropout, as the JAX package's rng=None).
+        own weights. For the CDAE, folded weights (`inference_weights()`,
+        or `fold_batchnorm()`'s list, packed here) run K4: the masks and
+        magnitudes of every bucket in four launches, fp32; an amp model's
+        folded weights are refused. generator: the LSTM's dropout draws in
+        train mode (None: no dropout, as the JAX package's rng=None).
 
         Returns (Ymags, Ymasks): Ymags is a `PackedBlocks` of
         (4, B, C, F, S, T) views of one float32 buffer, in the layout of
         Xcomplex when that is packed; Ymasks a list of per-bucket masks."""
         layout = layout_of(Xcomplex)
+        tp = self.mesh is not None and self.mesh.tp > 1
+        folded = prepared is not None and not self.lstm
+        if folded:
+            if self.training:
+                raise ValueError("BN-folded weights cannot train (fold_batchnorm is eval-only)")
+            if self.amp:
+                raise ValueError("K4 runs fp32: an amp model's folded weights are not served")
+            weights = prepared if isinstance(prepared, cdae_conv.CdaeWeights) else \
+                cdae_conv.pack_weights(prepared, self.cdae_arch())
+            mags, masks = cdae_conv.cdae_folded(pack(Xcomplex).packed, weights, layout, self.realtime)
+            Ymasks = layout.split(masks, weights.arch.targets)
+            if not tp:
+                return PackedBlocks(mags, layout, NB_TARGETS), Ymasks
+            # K4's magnitudes hold this rank's targets only: those of all 4
+            # come from the gathered masks below, as on the unfolded path
         Xmags = [torch.abs(x) for x in Xcomplex]
-        mesh = self.mesh if self.training else None       # eval BatchNorm reads the running statistics
-        if self.lstm:
-            Ymasks = lstm_masks(self.blocks, Xmags, prepared, generator, mesh)
-        else:
-            Ymasks = [blk(xm, None if prepared is None else prepared[i], mesh)
-                      for i, (blk, xm) in enumerate(zip(self.blocks, Xmags))]
-        if self.mesh is not None and self.mesh.tp > 1:
+        if not folded:
+            mesh = self.mesh if self.training else None       # eval BatchNorm reads the running statistics
+            if self.lstm:
+                Ymasks = lstm_masks(self.blocks, Xmags, prepared, generator, mesh)
+            else:
+                Ymasks = [blk(xm, None, mesh) for blk, xm in zip(self.blocks, Xmags)]
+        if tp:
             Ymasks = self._gather_targets(Ymasks)
         if torch.is_grad_enabled() and any(m.requires_grad for m in Ymasks):
             # out= writes do not support autograd: concatenate instead
