@@ -8,8 +8,9 @@ into build/xumx_slicq_torch/, K2 with Triton), holds each against its plain
 PyTorch version at the shapes of the main path (K2 as one grouped call
 over all 70 buckets of the packed layout; K3, the analysis gather and
 weight of all 70 buckets in one launch, also at the train step's two
-layouts; K4, the folded CDAE of all 70 buckets in four launches, offline
-and realtime, each launch timed beside its bound and cuDNN), checks the canonical
+layouts; K4, the folded CDAE of all 70 buckets in four launches on the
+tensor cores (3xTF32), offline and realtime, each launch timed beside its
+tensor-core bound, the fp32 CUDA-core one and cuDNN), checks the canonical
 bark-262 transform round trip on the card, runs the full-width offline
 Separator on the card and on the CPU and compares the stems, demixes a
 seeded 236 s stereo track (the MUSDB18-HQ test-set average length) with
@@ -95,13 +96,15 @@ import torch
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory rate (data sheet)
 FP32_FLOPS = 67e12              # H100 SXM fp32 outside the tensor cores (data sheet)
+TF32_FLOPS = 495e12             # H100 SXM dense TF32 on the tensor cores (data sheet)
 TRACK_SECONDS = 236             # MUSDB18-HQ test-set average track length
 K1_TOL = 1e-5                   # max |kernel - plain| / max |plain|: same sums, FMA contraction
 K3_TOL = 1e-6                   # K3, per bucket, max |kernel - plain| / max |plain|: one complex product an output
 K2_TOL = 1e-4                   # same, per bucket: fp32 division/sqrt rounding through the 2x2 inverse
 ROUNDTRIP_TOL = 1e-5            # transform round trip on unit-variance noise
 # K4 against its plain version (cuDNN convs, TF32 off) on the same packed inputs, max |mask_kernel - mask_plain|
-# with masks in (0, 1): fp32 sums of up to 1,008 products a layer in another order, through four layers
+# with masks in (0, 1): 3xTF32 products (fp32 accuracy) summed in fp32, up to 1,024 steps a layer in another
+# order, through four layers
 K4_TOL = 1e-5
 # names of cuDNN's conv kernels and their layout helpers in a profile (the CDAE before K4: PERF.md section 5)
 CUDNN_CONV_MARKERS = ("cudnn", "genericTranspose", "dgrad", "wgrad", "fprop", "scaleTensor", "implicit_convolve",
@@ -413,7 +416,7 @@ def k4_work(layout, arch, realtime: bool) -> dict:
     work = {name: [0, 0] for name in K4_LAYERS}
     wbytes = {name: 0 for name in K4_LAYERS}
     for o in _offsets(arch):
-        for name, (_, R, _, N, _) in o["layers"].items():
+        for name, (_, R, _, N, _, _) in o["layers"].items():
             wbytes[name] += 4 * n * R * N
     for (B, C, F, S, T), (_, _, _, fphi) in zip(layout.shapes, arch.buckets):
         F1, K1 = F - fphi + 1, 2 * S if realtime else 2 * S - 1
@@ -426,6 +429,13 @@ def k4_work(layout, arch, realtime: bool) -> dict:
             work[name][0] += macs
             work[name][1] += nbytes
     return {k: (m, b + wbytes[k]) for k, (m, b) in work.items()}
+
+
+def k4_bound(nbytes: float, macs: float):
+    """(bound_ms, bound_by) of a K4 layer on the tensor cores: 3xTF32 does
+    three TF32 products a MAC."""
+    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, 3 * 2 * macs / TF32_FLOPS * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
 def plain_layers_ms(X, weights, layout, realtime: bool) -> dict:
@@ -522,17 +532,22 @@ def k4_cdae(slicqt, g, kernels, batch: int, chunk: int):
         per_layer_plain = plain_layers_ms(X.packed, weights, layout, realtime)
         layers = {}
         for k, (macs, nbytes) in k4_work(layout, weights.arch, realtime).items():
-            b_ms, b_by = bound(nbytes, 2 * macs)
+            b_ms, b_by = k4_bound(nbytes, macs)
+            fp32_ms = bound(nbytes, 2 * macs)[0]
             k_ms = float(np.median(per_layer[k][1:]))
             layers[k] = dict(items=sizes[K4_LAYERS.index(k)], gmac=macs / 1e9, gbytes=nbytes / 1e9,
                              bound_ms=b_ms, bound_by=b_by, ms=k_ms, share_of_bound=b_ms / k_ms,
+                             fp32_bound_ms=fp32_ms, share_of_fp32_bound=fp32_ms / k_ms,
                              plain_ms=per_layer_plain[k][0], library_ms=per_layer_plain[k][1], runs_ms=per_layer[k])
         res[name] = dict(launches_per_call=per_call, max_abs_err=err, mags_max_abs_err=mag_err,
                          mags_rel_err=mag_rel, finite=finite, ms=ms, four_launches_ms=float(np.median(total[1:])),
                          plain_ms=plain_ms, library_ms=sum(v[1] for v in per_layer_plain.values()),
-                         bound_ms=sum(v["bound_ms"] for v in layers.values()), layers=layers,
-                         bound_arithmetic=f"bound = max(bytes / {HBM_BYTES_PER_S:.3g} B/s, 2 MACs / "
-                                          f"{FP32_FLOPS:.3g} FLOP/s) a layer, summed")
+                         bound_ms=sum(v["bound_ms"] for v in layers.values()),
+                         fp32_bound_ms=sum(v["fp32_bound_ms"] for v in layers.values()), layers=layers,
+                         bound_arithmetic=f"bound = max(bytes / {HBM_BYTES_PER_S:.3g} B/s, 3 x 2 MACs / "
+                                          f"{TF32_FLOPS:.3g} FLOP/s: 3xTF32 on the tensor cores) a layer, summed; "
+                                          f"fp32_bound = max(bytes / {HBM_BYTES_PER_S:.3g} B/s, 2 MACs / "
+                                          f"{FP32_FLOPS:.3g} FLOP/s: fp32 on the CUDA cores)")
         check(finite, f"K4 {name}: non-finite masks or magnitudes")
         check(per_call == dict.fromkeys(K4_LAYERS, 1), f"K4 {name}: one call launched {per_call}")
         check(err <= K4_TOL, f"K4 {name} disagrees with its plain version: masks max abs err {err} > {K4_TOL}")

@@ -84,29 +84,98 @@ def test_plain_matches_module(case, realtime, targets):
             assert float((gb - ref_mag).abs().max()) <= PLAIN_TOL * float(ref_mag.abs().max())
 
 
+def mm_3xtf32(a: torch.Tensor, w_hi: torch.Tensor, w_lo: torch.Tensor, steps: int = 8) -> torch.Tensor:
+    """a @ w, float32 (M, R) x (R, N), as csrc/cdae_conv.cu's tensor cores
+    sum it from w's TF32 parts: a chunk of `steps` reduction steps at a
+    time, with hi = tf32_round(a) and lo = tf32_round(a - hi), acc += lo_a
+    hi_w, then hi_a lo_w, then hi_a hi_w, in float32."""
+    ah = cdae_conv.tf32_round(a)
+    al = cdae_conv.tf32_round(a - ah)
+    acc = torch.zeros(a.shape[0], w_hi.shape[1], dtype=torch.float32)
+    for k in range(0, a.shape[1], steps):
+        s = slice(k, k + steps)
+        acc += al[:, s] @ w_hi[s]
+        acc += ah[:, s] @ w_lo[s]
+        acc += ah[:, s] @ w_hi[s]
+    return acc
+
+
+def _split(w: torch.Tensor):
+    """(hi, lo) of float32 w, as pack_weights splits the weights."""
+    hi = cdae_conv.tf32_round(w)
+    return hi, cdae_conv.tf32_round(w - hi)
+
+
+def _check_lines(A, src, p, e, b, f, k, kr, rows, bm, g, lw, line_length):
+    """The line gather of enc2, dec1 (lw = TF2 time steps a line) and dec2
+    (lw = 2 half slices) as csrc/cdae_conv.cu runs it: per group of lw steps
+    one line a row tile, row r at line position pos(r) = r' + (lw - 1)
+    (row // ko - row0 // ko) (r' its place in the tile); each row copies the
+    line's element pos(r) + lw - 1, a row that starts a tile or a k = 0 run
+    also pos(r) .. pos(r) + lw - 2. Checks that no element is written twice
+    and that every step t of every row reads its per-element gather A[row,
+    step] at pos(r) + t (enc2) or pos(r) + lw - 1 - t (dec1, dec2), inside
+    the line length the launch sizes."""
+    tile, rel = rows // bm, rows % bm
+    pos = rel + (lw - 1) * (rows // p["ko"] - (tile * bm) // p["ko"])
+    start = (rel == 0) | (k == 0)
+    sgn = int(e[1, 2])                       # dk of step 1: +1 (k + t) or -1 (k - t)
+    aoff = 0 if sgn > 0 else 1 - lw
+    heads = e[0::lw]                         # each line's step t = 0
+    base = p["in_off"] + b * p["in_bstride"] + g * p["in_gstride"] + f * p["kin"] + kr
+    line = torch.full((int(tile.max()) + 1, heads.shape[0], line_length), float("nan"))
+    writes = torch.zeros(line.shape, dtype=torch.int64)
+    lines = torch.arange(heads.shape[0])
+    for j in range(lw):
+        who = start if j < lw - 1 else torch.ones_like(start)
+        fi = f[:, None] + heads[None, :, 1]
+        ki = kr[:, None] + heads[None, :, 2] + aoff + j
+        ok = (fi >= 0) & (fi < p["fin"]) & (ki >= 0) & (ki < p["kin"])
+        val = torch.where(ok, src[torch.where(ok, base[:, None] + heads[None, :, 0] + aoff + j, 0)], 0)
+        t_i, l_i = tile[who][:, None].expand(-1, lines.numel()), lines[None, :].expand(int(who.sum()), -1)
+        x_i = (pos[who] + j)[:, None].expand(-1, lines.numel())
+        line[t_i, l_i, x_i] = val[who]
+        writes.index_put_((t_i, l_i, x_i), torch.ones_like(x_i), accumulate=True)
+    assert int(writes.max()) == 1 and line_length % 32 == 16
+    for t in range(lw):
+        got = line[tile[:, None], lines[None, :], (pos + (t if sgn > 0 else lw - 1 - t))[:, None]]
+        assert torch.equal(got, A[:, t::lw])
+
+
 def _walk(X, weights, layout, realtime):
     """K4's four launches as csrc/cdae_conv.cu computes them, one plan row
     and target at a time: each row's reduction gathered through the step
-    table with the kernel's bounds checks, times the packed [R_pad][ldw]
-    weights, with the kernel's epilogue indices. Also checks that the work
-    items cover every (bucket, target, row tile, column tile) once."""
+    table with the kernel's bounds checks (a zero-filled copy where a step
+    falls outside the input; enc1 copies the complex pair and whitens it as
+    the fragment is built, 0 where the step is outside, not the whitening
+    of 0), then, column tile by column tile as a block walks them, the 3xTF32
+    product with the weights' split copy (hi and lo in the fragments' order)
+    chunk by chunk, and the kernel's epilogue indices. Also checks that the
+    work items cover every (bucket, target, row tile) once (an enc1 item
+    holds two targets), heaviest first, and that the split copy is the
+    fp32 matrix's."""
     arch, w = weights.arch, weights.w
     plan, items, rtab, sizes = cdae_conv.work_tables(layout, arch, realtime)
     plan, items, rtab = torch.from_numpy(plan), torch.from_numpy(items), torch.from_numpy(rtab)
     n, nb = arch.targets, len(layout.shapes)
     fld = {f: i for i, f in enumerate(cdae_conv.PLAN_FIELDS)}
+    unpacked = [[w[o: o + n * r_pad * ldw].view(n, r_pad, ldw) for o, _, r_pad, _, ldw, _ in e["layers"].values()]
+                for e in cdae_conv._offsets(arch)]
     h13, h2 = torch.full((sizes[4],), float("nan")), torch.full((sizes[5],), float("nan"))
     masks, mags = torch.full((n * layout.size,), float("nan")), torch.full((n * layout.size,), float("nan"))
     first = 0
     for li, (name, src, dst) in enumerate(zip(cdae_conv.LAYERS, (X, h13, h2, h13), (h13, h2, h13, masks))):
-        bm, bn = cdae_conv.DEC2_TILE if name == "dec2" else cdae_conv.CONV_TILE
+        bm, bn = cdae_conv.TILES[name]
+        gt = cdae_conv.ENC1_TARGETS if name == "enc1" else 1
         layer_items = items[first: first + sizes[li]]
         first += sizes[li]
-        expect = set()
+        expect, cost = set(), {}
         for k in range(nb):
             p = {f: int(plan[li * nb + k, i]) for f, i in fld.items()}
-            expect |= {(li * nb + k, g, rt, ct) for g in range(n) for rt in range(-(-p["rows"] // bm))
-                       for ct in range(p["ldw"] // bn)}
+            assert p["r_pad"] % cdae_conv.RC[name] == 0 and p["ldw"] % 8 == 0 and p["w_off"] % 4 == 0
+            expect |= {(li * nb + k, g, rt, min(gt, n - g)) for g in range(0, n, gt)
+                       for rt in range(-(-p["rows"] // bm))}
+            cost[li * nb + k] = p["r_pad"] * -(-p["ldw"] // bn)
             rows = torch.arange(p["rows"])
             b, rem = rows // p["foko"], rows % p["foko"]
             f, kk = rem // p["ko"], rem % p["ko"]
@@ -114,32 +183,41 @@ def _walk(X, weights, layout, realtime):
             e = rtab[p["rtab_off"]: p["rtab_off"] + p["r_pad"]].long()
             fi, ki = f[:, None] + e[None, :, 1], kr[:, None] + e[None, :, 2]
             ok = (fi >= 0) & (fi < p["fin"]) & (ki >= 0) & (ki < p["kin"])
-            cols = torch.arange(p["n"])
             for g in range(n):
                 base = p["in_off"] + b * p["in_bstride"] + g * p["in_gstride"] + f * p["kin"] + kr
-                idx = torch.where(ok, base[:, None] + e[None, :, 0], 0)
-                if name == "enc1":
+                copy = torch.where(ok, src[torch.where(ok, base[:, None] + e[None, :, 0], 0)], 0)
+                if name in cdae_conv.LINE_WIDTH:
+                    _check_lines(copy, src, p, e, b, f, kk, kr, rows, bm, g, cdae_conv.LINE_WIDTH[name],
+                                 sizes[10 + li])
+                if name == "enc1":          # the fragment: whiten the copied pair where the step is inside
                     fw = torch.where(ok, fi, 0)
-                    v = (src[idx].abs() + w[p["white_off"] + fw]) * w[p["white_off"] + p["fin"] + fw]
+                    A = torch.where(ok, (copy.abs() + w[p["white_off"] + fw]) * w[p["white_off"] + p["fin"] + fw], 0.0)
                 else:
-                    v = src[idx]
-                A = torch.where(ok, v, 0.0)
-                Wm = w[p["w_off"] + g * p["r_pad"] * p["ldw"]:][: p["r_pad"] * p["ldw"]].view(p["r_pad"], p["ldw"])
-                Y = (A @ Wm)[:, : p["n"]]
-                if name != "dec2":
-                    o = p["out_off"] + b * p["out_bstride"] + g * p["out_gstride"] + rem
-                    dst[o[:, None] + cols[None, :] * p["out_cstride"]] = torch.relu(
-                        Y + w[p["bias_off"] + g * p["n"] + cols])
-                    continue
-                hop = p["hop"]
-                c, t = cols // hop, cols % hop
-                pos = b[:, None] * p["out_bstride"] + c[None, :] * p["out_cstride"] + rem[:, None] * hop + t[None, :]
-                m = torch.sigmoid(Y + w[p["bias_off"] + g * (p["n"] // hop) + c])
-                dst[p["out_off"] + g * p["out_gstride"] + pos] = m
-                mags[p["out_off"] + g * p["out_gstride"] + pos] = m * X[p["x_off"] + pos].abs()
+                    A = copy
+                q = w[p["w_off"] + 2 * g * p["r_pad"] * p["ldw"]:][: 2 * p["r_pad"] * p["ldw"]]
+                q = q.view(p["r_pad"] // 8, p["ldw"], 4, 2, 2)       # [8 steps][col][t][hi, lo][t, t + 4]
+                w_hi, w_lo = (q[:, :, :, i].permute(0, 3, 2, 1).reshape(p["r_pad"], p["ldw"]) for i in (0, 1))
+                fp32 = unpacked[k][li][g]
+                assert torch.equal(w_hi, _split(fp32)[0]) and torch.equal(w_lo, _split(fp32)[1])
+                for c0 in range(0, p["ldw"], bn):        # the block's column tiles
+                    cols = torch.arange(c0, min(c0 + bn, p["ldw"]))
+                    Y = mm_3xtf32(A, w_hi[:, cols], w_lo[:, cols])
+                    Y, cols = Y[:, cols < p["n"]], cols[cols < p["n"]]
+                    if name != "dec2":
+                        o = p["out_off"] + b * p["out_bstride"] + g * p["out_gstride"] + rem
+                        dst[o[:, None] + cols[None, :] * p["out_cstride"]] = torch.relu(
+                            Y + w[p["bias_off"] + g * p["n"] + cols])
+                        continue
+                    hop = p["hop"]
+                    c, t = cols // hop, cols % hop
+                    pos = (b[:, None] * p["out_bstride"] + c[None, :] * p["out_cstride"] + rem[:, None] * hop
+                           + t[None, :])
+                    m = torch.sigmoid(Y + w[p["bias_off"] + g * (p["n"] // hop) + c])
+                    dst[p["out_off"] + g * p["out_gstride"] + pos] = m
+                    mags[p["out_off"] + g * p["out_gstride"] + pos] = m * X[p["x_off"] + pos].abs()
         assert {tuple(it) for it in layer_items.tolist()} == expect and len(layer_items) == len(expect)
-        costs = [int(plan[it[0], fld["r_pad"]]) for it in layer_items.tolist()]
-        assert costs == sorted(costs, reverse=True)          # heaviest reductions first
+        costs = [cost[it[0]] for it in layer_items.tolist()]
+        assert costs == sorted(costs, reverse=True)          # heaviest items first
     return mags, masks
 
 
@@ -156,6 +234,69 @@ def test_kernel_tables_walk_matches_plain(case, realtime, targets):
     assert not torch.isnan(wmasks).any() and not torch.isnan(wmags).any()
     assert float((wmasks - masks).abs().max()) <= WALK_TOL
     assert float((wmags - mags).abs().max()) <= WALK_TOL * float(mags.abs().max())
+
+
+@pytest.mark.parametrize("steps", [160, 500, 1000], ids=["enc1", "dec2", "enc2_dec1"])
+def test_3xtf32_keeps_fp32_accuracy(steps):
+    """The kernel's 3xTF32 product (`mm_3xtf32`) over the reductions of the
+    F = 86 bucket (enc1 160 steps, dec2 500, enc2 and dec1 1,000) on
+    activation-scale data (ReLU outputs times weights of variance 1/R) stays
+    within 1e-6 of float64, as fp32 FMAs summed step by step (the CUDA-core
+    kernel's arithmetic) and fp32 BLAS do; single-pass TF32 does not. The
+    errors are relative to the largest sum of |a| |w|, the scale of a sum's
+    rounding error."""
+    rng = np.random.default_rng(steps)
+    a = np.maximum(rng.standard_normal((256, steps)), 0).astype(np.float32)
+    w = (rng.standard_normal((steps, 56)) / np.sqrt(steps)).astype(np.float32)
+    ref = a.astype(np.float64) @ w.astype(np.float64)
+    scale = float((np.abs(a).astype(np.float64) @ np.abs(w).astype(np.float64)).max())
+    at, wt = torch.from_numpy(a), torch.from_numpy(w)
+
+    def err(y):
+        return float(np.abs(y.numpy().astype(np.float64) - ref).max()) / scale
+
+    fma = torch.zeros(256, 56)
+    for k in range(steps):
+        fma = torch.addcmul(fma, at[:, k: k + 1], wt[k: k + 1])
+    assert err(fma) <= 1e-6 and err(at @ wt) <= 1e-6
+    assert err(mm_3xtf32(at, *_split(wt))) <= 1e-6
+    assert err(cdae_conv.tf32_round(at) @ cdae_conv.tf32_round(wt)) > 1e-5
+
+
+def test_tf32_round_is_cvt_rna():
+    """tf32_round keeps 10 mantissa bits, rounding to nearest with ties away
+    from zero (PTX cvt.rna.tf32.f32), on either sign."""
+    u = 2.0 ** -10                    # one TF32 ulp at 1
+    x = torch.tensor([1 + u / 2, 1 + u / 2 - 2 ** -23, 1 + 3 * u / 2, 1 + u / 4, -(1 + u / 2), 3.0e-30, 0.0])
+    ref = torch.tensor([1 + u, 1.0, 1 + 2 * u, 1.0, -(1 + u), 3.0e-30, 0.0])
+    got = cdae_conv.tf32_round(x)
+    assert torch.equal(got[:5], ref[:5]) and got[6] == 0
+    assert (got.view(torch.int32) & 0x1FFF == 0).all() and abs(float(got[5]) / 3.0e-30 - 1) < 2 ** -10
+
+
+def test_work_tables_at_the_main_path():
+    """K4's tables at bark-262, a chunk batch of 4 default chunks, offline:
+    every plan row's steps and columns padded to the kernel's chunks and n8
+    tiles, the F = 86 bucket's items first in enc2 and dec1, and every dec2
+    bucket with more than one column tile short enough to stay resident."""
+    t = SliCQT(device=DEVICE)
+    shapes = t.block_shapes(4, 2, 2621440)
+    fphi = [SlicedCDAE(C, F, T).fphi for (_, C, F, _, T) in shapes]
+    arch = cdae_conv.CdaeArch(tuple((C, F, T, f) for (_, C, F, _, T), f in zip(shapes, fphi)))
+    plan, items, rtab, sizes = cdae_conv.work_tables(BucketLayout(shapes), arch, False)
+    fld = {f: i for i, f in enumerate(cdae_conv.PLAN_FIELDS)}
+    nb, wide = len(shapes), shapes.index(next(s for s in shapes if s[2] == 86))
+    assert (plan[:, fld["ldw"]] % 8 == 0).all()
+    first = np.cumsum([0] + sizes[:4])
+    for li, name in enumerate(cdae_conv.LAYERS):
+        layer = items[first[li]: first[li + 1]]
+        assert (plan[li * nb: (li + 1) * nb, fld["r_pad"]] % cdae_conv.RC[name] == 0).all()
+        assert sizes[6 + li] == plan[li * nb: (li + 1) * nb, fld["r_pad"]].max()
+        if name in ("enc2", "dec1"):
+            assert plan[layer[0, 0], fld["r_pad"]] >= 1000 and layer[0, 0] == li * nb + wide
+    dec2 = plan[3 * nb:]
+    tiles = -(-dec2[:, fld["ldw"]] // cdae_conv.DEC2_TILE[1])
+    assert (dec2[tiles > 1, fld["r_pad"]] <= cdae_conv.DEC2_RESIDENT).all() and (tiles > 1).sum() > 40
 
 
 def test_weights_round_trip_and_refusals():

@@ -8,8 +8,9 @@ worker collects the same tests. Tolerances are relative to the largest
 plain value (of each bucket, for K2): 1e-5 for K1 and its backward (the
 same sums; only FMA contraction differs), 1e-6 per bucket for K3 (one
 complex product an output), 1e-5 for K4's masks (absolute, masks in (0, 1))
-and magnitudes (fp32 sums of up to 1,008 products a layer in another order
-than cuDNN's, TF32 off), and 1e-4 for K2 and its backward
+and magnitudes (3xTF32 products, fp32 accuracy, summed in fp32 over up to
+1,024 steps a layer in another order than cuDNN's, TF32 off), and 1e-4
+for K2 and its backward
 (fp32 division and square-root rounding through the 2x2 inverse, and row
 sums taken in another order). K5 (the LSTM recurrence) is held to 1e-4
 absolute on h, |h| < 1: accurate expf/tanhf against the CPU's sigmoid and
@@ -381,6 +382,45 @@ def test_k4_matches_plain(cuda, no_tf32, cfg, batch, length, realtime):
         assert {k: c.launches - before[k] for k, c in k4_counters.items()} == dict.fromkeys(before, 1)
         ref_mags, ref_masks = cdae_folded_plain(X.packed, weights.w, X.layout, weights.arch, realtime)
     assert masks.shape == ref_masks.shape == (4 * X.layout.size,)
+    assert float((masks - ref_masks).abs().max()) <= K4_TOL
+    assert _rel(mags, ref_mags) <= K4_TOL
+
+
+def test_k4_is_bit_equal_over_calls(cuda):
+    """Two K4 calls on the same inputs at the main path's layout (bark-262, a
+    chunk batch of 4 default chunks) give the same bits: every sum has a
+    fixed order."""
+    t = SliCQT(device=cuda)
+    model = Unmix(t.block_shapes(1, 2, 2 * 44100), seed=7, device=cuda)
+    perturb_cdae(model.blocks, 7)
+    weights = model.inference_weights()
+    a = torch.randn((4, 2, 2621440), generator=torch.Generator(cuda).manual_seed(8), device=cuda) * 0.1
+    with torch.inference_mode():
+        X = t.forward(a)
+        first = cdae_folded(X.packed, weights, X.layout, False)
+        second = cdae_folded(X.packed, weights, X.layout, False)
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
+
+
+@pytest.mark.parametrize("realtime", [False, True], ids=["offline", "realtime"])
+def test_k4_widest_bucket_alone(cuda, no_tf32, realtime):
+    """K4 on the F = 86 bucket alone (fphi 5: 1,000 steps in enc2 and 1,020
+    in dec1, 16 columns in dec2, two thirds of the MACs of the main path)
+    at the inference layout (a chunk batch of 4, 292 slices) against its
+    plain version, BatchNorm and whitening perturbed; two calls bit-equal."""
+    shape = (4, 2, 86, 292, 16)
+    layout = BucketLayout([shape])
+    model = Unmix([(1,) + shape[1:]], realtime=realtime, seed=5, device=cuda)
+    assert model.blocks[0].fphi == 5
+    perturb_cdae(model.blocks, 5)
+    weights = model.inference_weights()
+    X = torch.randn(layout.size, dtype=torch.complex64, generator=torch.Generator(cuda).manual_seed(6),
+                    device=cuda) * 0.1
+    with torch.inference_mode():
+        mags, masks = cdae_folded(X, weights, layout, realtime)
+        mags2, masks2 = cdae_folded(X, weights, layout, realtime)
+        ref_mags, ref_masks = cdae_folded_plain(X, weights.w, layout, weights.arch, realtime)
+    assert torch.equal(masks, masks2) and torch.equal(mags, mags2)
     assert float((masks - ref_masks).abs().max()) <= K4_TOL
     assert _rel(mags, ref_mags) <= K4_TOL
 

@@ -22,12 +22,22 @@ are counted in `counters[layer].launches`.
 
 The weights' packing: for each (bucket, layer, target) one [R_pad][ldw]
 float32 matrix, row r a reduction step, column a layer output, zero past
-R and past the layer's columns (`_offsets`), then the biases and the
-whitening, all in one buffer. The work tables (`work_tables`, one set per
-layout and architecture, cached per device) hold one row of ints per
+R and past the layer's columns, and its split copy for the kernel
+(`_split_matrices`: each weight as TF32 high and low parts, in the order
+the tensor cores' fragments read them), then the biases and the
+whitening, all in one buffer (`_offsets`). The work tables
+(`work_tables`, one set per layout and architecture, cached per device)
+hold one row of ints per
 (layer, bucket) (`PLAN_FIELDS`, the order csrc/cdae_conv.cu reads), one
 entry {delta, df, dk, 0} per reduction step, and one item per (bucket,
-target, row tile, column tile), the heaviest reductions first.
+target, row tile; enc1: two targets), the heaviest first (steps times
+column tiles: the block walks every column tile of its rows).
+
+The kernels run on the tensor cores in the 3xTF32 form (each fp32 operand
+split into a TF32 high part and remainder, three products summed in
+fp32), which keeps fp32 accuracy; the tensor cores' fp32 sums round
+otherwise than the CUDA cores', which leaves the masks ~2e-6 from the
+plain version at the main path's layout.
 
 `plain_layers` is the plain version of one bucket's four layers, and
 the folded forward of `SlicedCDAE` (models/cdae.py) runs it;
@@ -51,9 +61,13 @@ from ..device import device_cache
 from ..ops.packed import BucketLayout
 from . import build
 
-RC = 16                          # reduction steps a chunk (R is padded to a multiple)
-CONV_TILE = (224, 56)            # rows x columns a block: enc1, enc2, dec1
-DEC2_TILE = (512, 16)            # half-slice rows x samples a block: dec2
+RC = {"enc1": 8, "enc2": 16, "dec1": 16, "dec2": 8}   # reduction steps a kernel's chunk (R is padded to them)
+ENC1_TILE = (128, 56)            # rows x columns a target of a column tile: enc1
+ENC1_TARGETS = 2                 # targets an enc1 block sums at once: they share its gathered |X|
+CONV_TILE = (256, 56)            # rows x columns of a column tile: enc2, dec1
+DEC2_TILE = (128, 64)            # half-slice rows x samples of a column tile: dec2
+DEC2_RESIDENT = 104              # dec2's reduction steps a block keeps while it walks its column tiles
+TF2 = 4                          # enc2's and dec1's time kernel: the steps of one line gather (csrc/cdae_conv.cu)
 LAYERS = ("enc1", "enc2", "dec1", "dec2")
 PLAN_FIELDS = ("in_off", "out_off", "w_off", "bias_off", "rtab_off", "r_pad", "ldw", "n", "rows", "foko",
                "ko", "kstride", "kpad", "fin", "kin", "in_bstride", "in_gstride", "out_bstride", "out_gstride",
@@ -92,15 +106,15 @@ class CdaeWeights:
     arch: CdaeArch
 
 
-def _layer_dims(arch: CdaeArch, C: int, T: int, fphi: int) -> Dict[str, Tuple[int, int, int]]:
-    """(R, N, tile columns) of each layer of one bucket: reduction length,
-    output columns per target, and the column tile width."""
+def _layer_dims(arch: CdaeArch, C: int, T: int, fphi: int) -> Dict[str, Tuple[int, int]]:
+    """(R, N) of each layer of one bucket: reduction length and output
+    columns per target."""
     hop = T // 2
     return {
-        "enc1": (C * fphi * T, arch.h1, CONV_TILE[1]),
-        "enc2": (arch.h1 * fphi * arch.tf2, arch.h2, CONV_TILE[1]),
-        "dec1": (arch.h2 * fphi * arch.tf2, arch.h1, CONV_TILE[1]),
-        "dec2": (arch.h1 * fphi * 2, C * hop, DEC2_TILE[1]),
+        "enc1": (C * fphi * T, arch.h1),
+        "enc2": (arch.h1 * fphi * arch.tf2, arch.h2),
+        "dec1": (arch.h2 * fphi * arch.tf2, arch.h1),
+        "dec2": (arch.h1 * fphi * 2, C * hop),
     }
 
 
@@ -110,20 +124,23 @@ def _ceil(a: int, b: int) -> int:
 
 def _offsets(arch: CdaeArch) -> List[dict]:
     """Per bucket, where each part lies in the packed weight buffer: per
-    layer (offset, R, R_pad, N, ldw) of the targets' [R_pad][ldw]
-    matrices, then the biases of enc1, enc2, dec1 and dec2 and the
-    whitening (mean then scale, F each). The last entry's "end" is the
-    buffer's size."""
+    layer (offset, R, R_pad, N, ldw, split offset) of the targets' fp32
+    [R_pad][ldw] matrices (R_pad a multiple of RC[layer], ldw of 8: the kernel's
+    n8 tiles) and of their split copies (`_split_matrices`, 2 R_pad ldw
+    floats a target, each at a multiple of 4 floats, for 16-byte copies),
+    then the biases of enc1, enc2, dec1 and dec2 and the whitening (mean
+    then scale, F each). The last entry's "end" is the buffer's size."""
     out, off = [], 0
     n = arch.targets
     for C, F, T, fphi in arch.buckets:
         if T % 2:
             raise ValueError(f"cdae_conv: a bucket's T must be even (hop T/2), got {T}")
         e = {"layers": {}}
-        for name, (R, N, bn) in _layer_dims(arch, C, T, fphi).items():
-            r_pad, ldw = _ceil(R, RC), _ceil(N, bn)
-            e["layers"][name] = (off, R, r_pad, N, ldw)
-            off += n * r_pad * ldw
+        for name, (R, N) in _layer_dims(arch, C, T, fphi).items():
+            r_pad, ldw = _ceil(R, RC[name]), _ceil(N, 8)
+            off = _ceil(off, 4)
+            e["layers"][name] = (off, R, r_pad, N, ldw, off + n * r_pad * ldw)
+            off += 3 * n * r_pad * ldw
         for name, size in (("enc1_b", n * arch.h1), ("enc2_b", n * arch.h2), ("dec1_b", n * arch.h1),
                            ("dec2_b", n * C), ("white", 2 * F)):
             e[name] = off
@@ -161,17 +178,40 @@ def _from_matrices(name: str, m: torch.Tensor, arch: CdaeArch, C: int, T: int, f
     return m.reshape(n, h1, fphi, 2, C, hop).permute(0, 1, 4, 2, 3, 5).reshape(n * h1, C, fphi, T)
 
 
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> the nearest TF32 value (10 mantissa bits, ties away from
+    zero), as PTX's cvt.rna.tf32.f32 for finite x, by bit operations on an
+    int32 view."""
+    return ((x.contiguous().view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split_matrices(m: torch.Tensor) -> torch.Tensor:
+    """(targets, R_pad, ldw) fp32 -> the kernel's split copy (targets,
+    R_pad / 8, ldw, 4, 4): for each 8 reduction steps, column n and t < 4,
+    (hi[t], hi[t + 4], lo[t], lo[t + 4]) of column n, hi = tf32_round(w)
+    and lo = tf32_round(w - hi): one lane's two m16n8k8 B fragments
+    (steps t and t + 4), high and low, in one 16-byte load."""
+    n, r_pad, ldw = m.shape
+    hi = tf32_round(m)
+    lo = tf32_round(m - hi)
+    h, l = hi.view(n, r_pad // 8, 2, 4, ldw), lo.view(n, r_pad // 8, 2, 4, ldw)
+    return torch.stack((h[:, :, 0], h[:, :, 1], l[:, :, 0], l[:, :, 1]), -1).permute(0, 1, 3, 2, 4)
+
+
 def pack_weights(folded: Sequence[Dict[str, torch.Tensor]], arch: CdaeArch) -> CdaeWeights:
     """Every bucket's folded weights (`SlicedCDAE.fold_batchnorm`) in K4's
-    packed buffer, on their device. Folded weights are eval-only: the
-    buffer carries no gradient."""
+    packed buffer, on their device: the fp32 matrices (the plain version
+    reads them) and their split copies (the kernel reads those). Folded
+    weights are eval-only: the buffer carries no gradient."""
     offs = _offsets(arch)
     with torch.no_grad():
         w = torch.zeros(offs[-1]["end"] if offs else 0, dtype=torch.float32, device=folded[0]["enc1_w"].device)
         for (C, F, T, fphi), o, p in zip(arch.buckets, offs, folded):
-            for name, (off, R, r_pad, N, ldw) in o["layers"].items():
-                dst = w[off: off + arch.targets * r_pad * ldw].view(arch.targets, r_pad, ldw)
+            for name, (off, R, r_pad, N, ldw, koff) in o["layers"].items():
+                size = arch.targets * r_pad * ldw
+                dst = w[off: off + size].view(arch.targets, r_pad, ldw)
                 dst[:, :R, :N] = _as_matrices(name, p[f"{name}_w"].float(), arch, C, T, fphi)
+                w[koff: koff + 2 * size] = _split_matrices(dst).reshape(-1)
             for name in ("enc1_b", "enc2_b", "dec1_b", "dec2_b"):
                 b = p[name].reshape(-1)
                 w[o[name]: o[name] + b.numel()] = b
@@ -186,7 +226,7 @@ def unpack_weights(w: torch.Tensor, arch: CdaeArch) -> List[Dict[str, torch.Tens
     out = []
     for (C, F, T, fphi), o in zip(arch.buckets, _offsets(arch)):
         p = {}
-        for name, (off, R, r_pad, N, ldw) in o["layers"].items():
+        for name, (off, R, r_pad, N, ldw, _) in o["layers"].items():
             m = w[off: off + arch.targets * r_pad * ldw].view(arch.targets, r_pad, ldw)[:, :R, :N]
             p[f"{name}_w"] = _from_matrices(name, m, arch, C, T, fphi)
         for name, size in (("enc1_b", arch.h1), ("enc2_b", arch.h2), ("dec1_b", arch.h1), ("dec2_b", C)):
@@ -271,12 +311,32 @@ def _activation_sizes(layout: BucketLayout, arch: CdaeArch, realtime: bool):
     return dims, h1_off, h2_off, s1, s2
 
 
+TILES = {"enc1": ENC1_TILE, "enc2": CONV_TILE, "dec1": CONV_TILE, "dec2": DEC2_TILE}
+LINE_WIDTH = {"enc2": TF2, "dec1": TF2, "dec2": 2}   # steps a line of the kernels' line gather
+
+
+def _line_length(ko: int, name: str) -> int:
+    """The line length of a layer's line gather for rows of ko time steps a
+    (b, f) (csrc/cdae_conv.cu): a row tile's rows, plus LINE_WIDTH - 1 for
+    each run of rows in one input line it touches, rounded up to 16 (mod
+    32) floats, so that lanes reading two lines hit other banks."""
+    bm, lw = TILES[name][0], LINE_WIDTH[name]
+    n = bm + (lw - 1) * ((bm - 1) // ko + 2)
+    return n + (16 - n) % 32
+
+
 def work_tables(layout: BucketLayout, arch: CdaeArch, realtime: bool):
     """K4's tables for one layout: (plan (4 * buckets, PLAN_FIELDS) int64,
     items (n_items, 4) int32, rtab (steps, 4) int32, sizes), sizes being
-    the items of each layer (4 ints) then the scratch sizes of h1 and h2."""
+    the items of each layer (4 ints), the scratch sizes of h1 and h2, the
+    longest step table (R_pad) of each layer (4 ints: the kernel keeps an
+    item's table in shared memory), then the line length of enc2's, dec1's
+    and dec2's gathers (`_line_length`) and enc1's largest F (its whitening
+    in shared memory) (4 ints)."""
     if tuple((C, F, T) for _, C, F, _, T in layout.shapes) != tuple(b[:3] for b in arch.buckets):
         raise ValueError("cdae_conv: the layout's buckets differ from the weights' architecture")
+    if arch.tf2 != TF2:
+        raise ValueError(f"cdae_conv: the kernels' enc2 and dec1 gather groups of {TF2} time steps, got {arch.tf2}")
     n, h1, h2, tf2 = arch.targets, arch.h1, arch.h2, arch.tf2
     woffs = _offsets(arch)
     dims, h1_off, h2_off, s1, s2 = _activation_sizes(layout, arch, realtime)
@@ -307,7 +367,7 @@ def work_tables(layout: BucketLayout, arch: CdaeArch, realtime: bool):
             "dec2": (n * xoff, C * F * S * T, B * C * F * S * T, F * S * T),
         }
         for li, name in enumerate(LAYERS):
-            w_off, R, r_pad, N, ldw = wo["layers"][name]
+            _, R, r_pad, N, ldw, w_off = wo["layers"][name]
             grids = np.meshgrid(*[np.arange(a[0]) for a in steps[name]], indexing="ij")
             e = np.zeros((r_pad, 4), np.int64)
             e[R:, 1] = _INVALID
@@ -327,20 +387,25 @@ def work_tables(layout: BucketLayout, arch: CdaeArch, realtime: bool):
                        out_cstride=out_c, hop=hop, white_off=wo["white"], x_off=xoff)
             plan[li * nb + k] = [row[f] for f in PLAN_FIELDS]
             rtab_off += r_pad
-            bm, bn = DEC2_TILE if name == "dec2" else CONV_TILE
-            for g in range(n):
-                for rt in range(-(-(B * FO * KO) // bm)):
-                    for ct in range(ldw // bn):
-                        items[li].append((r_pad, li * nb + k, g, rt, ct))
+            bm, bn = TILES[name]
+            cost = r_pad * -(-ldw // bn)        # steps times column tiles: a block walks all its column tiles
+            gt = ENC1_TARGETS if name == "enc1" else 1
+            for rt in range(-(-(B * FO * KO) // bm)):     # the targets of a row tile together: they share X
+                for g in range(0, n, gt):
+                    items[li].append((cost, li * nb + k, g, rt, min(gt, n - g)))
     ordered = []
-    for layer_items in items:       # heaviest reductions first (stable): the longest tiles start first
+    for layer_items in items:       # heaviest items first (stable): the longest tiles start first
         layer_items.sort(key=lambda it: -it[0])
         ordered.append(np.asarray([it[1:] for it in layer_items], np.int32).reshape(-1, 4))
     rtab = np.concatenate(rtabs)
-    if np.abs(rtab).max() >= 2 ** 31:
-        raise ValueError("cdae_conv: a bucket's activations are too large for 32-bit step offsets")
-    sizes = [len(it) for it in ordered] + [s1, s2]
+    if max(s1, s2, layout.size, np.abs(rtab).max()) >= 2 ** 31:
+        raise ValueError("cdae_conv: the activations are too large for the kernel's 32-bit offsets")
+    max_steps = [int(plan[li * nb: (li + 1) * nb, PLAN_FIELDS.index("r_pad")].max()) for li in range(len(LAYERS))]
+    lines = [max(_line_length(int(ko), name) for ko in plan[li * nb: (li + 1) * nb, PLAN_FIELDS.index("ko")])
+             if name in LINE_WIDTH else max(F for _, _, F, _, _ in layout.shapes) for li, name in enumerate(LAYERS)]
+    sizes = [len(it) for it in ordered] + [s1, s2] + max_steps + lines
     return plan, np.concatenate(ordered), rtab.astype(np.int32), sizes
+
 
 
 @device_cache
@@ -364,24 +429,27 @@ def launch(X: torch.Tensor, w: torch.Tensor, plan: torch.Tensor, items: torch.Te
         if t.dtype != dtype or t.device != dev or not t.is_contiguous():
             raise ValueError(f"cdae_folded: need contiguous {dtype} on {dev}, got {t.dtype} on {t.device}")
     if X.numel() != layout.size or plan.shape[1:] != (len(PLAN_FIELDS),) or items.shape[1:] != (4,) \
-            or rtab.shape[1:] != (4,) or items.shape[0] != sum(sizes[:4]):
+            or rtab.shape[1:] != (4,) or len(sizes) != 14 or items.shape[0] != sum(sizes[:4]):
         raise ValueError("cdae_folded: tables or mixture do not fit the layout")
-    n_items, (s1, s2) = sizes[:4], sizes[4:6]
+    if w.data_ptr() % 16:
+        raise ValueError("cdae_folded: the packed weights must start on 16 bytes (the kernel's 16-byte copies)")
+    n_items, (s1, s2), max_steps, lines = sizes[:4], sizes[4:6], sizes[6:10], sizes[10:14]
     h13 = torch.empty(s1, dtype=torch.float32, device=dev)
     h2 = torch.empty(s2, dtype=torch.float32, device=dev)
     masks = torch.empty(targets * layout.size, dtype=torch.float32, device=dev)
     mags = torch.empty_like(masks)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    conv_args = (ctypes.c_void_p,) * 4 + (ctypes.c_int32,) + (ctypes.c_void_p,) * 3
+    conv_args = (ctypes.c_void_p,) * 4 + (ctypes.c_int32,) * 3 + (ctypes.c_void_p,) * 3
     first = 0
-    for i, (name, count, src, dst) in enumerate(zip(LAYERS, n_items, (X, h13, h2, h13), (h13, h2, h13, masks))):
+    for i, (name, count, steps, line, src, dst) in enumerate(zip(LAYERS, n_items, max_steps, lines, (X, h13, h2, h13),
+                                                                 (h13, h2, h13, masks))):
         if events is not None:
             events[i].record()
         extra = (mags.data_ptr(), X.data_ptr()) if name == "dec2" else ()
         argtypes = conv_args[:-1] + (ctypes.c_void_p,) * 2 + conv_args[-1:] if extra else conv_args
         fn = build.function("cdae_conv", f"cdae_{name}", argtypes)
         rc = fn(src.data_ptr(), w.data_ptr(), plan.data_ptr(), items[first].data_ptr() if count else items.data_ptr(),
-                count, rtab.data_ptr(), dst.data_ptr(), *extra, stream)
+                count, steps, line, rtab.data_ptr(), dst.data_ptr(), *extra, stream)
         if rc != 0:
             raise RuntimeError(f"cdae_conv: the {name} launch failed with cudaError {rc}")
         counters[name].launches += 1
