@@ -1,0 +1,13 @@
+"""K5, the LSTM recurrence (lstm_recurrence): the share of its roofline over the profiled
+tracks, in %: the least time its calls could take on the card (work/k5.py
+over peaks.json) over the device time they took. Layer: kernels. Moves
+demix_rate."""
+
+from harness import roofline
+
+LAYER = "kernels"
+MOVES = "demix_rate"
+
+
+def read(s):
+    return roofline(s, "k5") if "demix_ops" in s else None
